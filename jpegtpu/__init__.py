@@ -1,11 +1,11 @@
-"""jpegtpu — a TPU-native baseline JPEG encode engine.
+"""jpegtpu — a baseline JPEG encode engine on an accelerator, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-strbac-damjan/jpeg-image-compression (BMP in -> baseline JFIF out), built
-for TPU: the 8x8 block pipeline (level shift, 2D DCT as batched MXU
-matmuls, quantization, zigzag, RLE, Huffman bit packing) runs over
-thousands of blocks at once, sharded across chips via jax.sharding with
-restart-marker stream stitching.
+A from-scratch JAX/XLA re-design of the capabilities of
+strbac-damjan/jpeg-image-compression (BMP in -> baseline JFIF out): the
+8x8 block pipeline (level shift, 2D DCT as block-diagonal matmuls,
+quantization, zigzag, RLE, Huffman bit packing) runs over thousands of
+blocks at once on the device, sharded across devices via jax.sharding
+with restart-marker stream stitching.
 """
 from .config import EncodeConfig
 from .pipeline import encode_file, encode_grayscale, grayscale_coefficients

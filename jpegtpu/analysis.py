@@ -1,6 +1,6 @@
 """Quality analysis: MSE / PSNR / SSIM / compression ratio / bits-per-pixel.
 
-The TPU-native counterpart of the reference's analysis layer
+The counterpart of the reference's analysis layer
 (analyze_results.py:17-140 + run_analysis.sh): same metrics, same
 gray-conversion convention (PIL 'L'), same 3-panel difference figure.
 SSIM is computed with the standard Gaussian-window formulation

@@ -1,12 +1,14 @@
 """Batch encode: many images per dispatch.
 
 The reference encodes one image per process run (natural_c main.c). For
-production TPU serving the win is batching: thousands of independent
-images amortize dispatch and fill the chip. Strategy (SURVEY.md §7.1 step
-6): bucket images by padded shape, pad the batch axis to power-of-two
-sizes so at most O(log B * shapes) programs ever compile, and vmap the
-whole fused encode (transform + entropy) over the batch axis. Each image
-gets its own scan: per-image DC chain, per-image byte stream.
+serving, the win is batching: many independent images amortize dispatch
+and fill the device. Strategy (SURVEY.md §7.1 step 6): bucket images by
+padded shape, pad the batch axis to power-of-two sizes so at most
+O(log B * shapes) programs ever compile, transform every image of the
+bucket in one vmapped program, and fold the image axis into the block
+axis of the entropy coder — each image is one segment of the batched
+segment concat, so every image gets its own scan (per-image DC chain,
+per-image byte stream).
 """
 from __future__ import annotations
 
@@ -24,104 +26,56 @@ from .ops import blocks
 from . import pipeline
 
 
-def _slot_geom(nbw: int) -> tuple[int, int, int]:
-    """Slot geometry for packing images of block width nbw into 128-lane
-    plane tiles: (wsb, r, ncg). wsb = slot width in BLOCKS; narrow images
-    round up to a power-of-two slot (>= 16 lanes, the merge kernel's
-    chunk granule) and pack r = 128/wsb side by side; wide images get
-    r = 1 with ncg = ceil(nbw/128) column groups. Widths that don't fill
-    their slot ride with MASKED pad lanes (zero-bit lanes contribute
-    nothing to the chunk merge), so ANY geometry packs — the r3 path
-    required exact ratios and silently demoted 760- or 640-wide batches
-    to the ~2x slower staged path (VERDICT r3 #2)."""
-    if nbw > 64:
-        ncg = -(-nbw // 128)
-        return 128 * ncg, 1, ncg
-    wsb = 16
-    while wsb < nbw:
-        wsb *= 2
-    return wsb, 128 // wsb, 1
+def _sharded(local_fn, mesh, n_in: int):
+    """jit(local_fn) — or, with a 1-D mesh, local_fn under shard_map with
+    the batch axis (first argument and every output) split across the
+    mesh and the remaining n_in - 1 arguments (tables) replicated: pure
+    data parallelism, no collectives. Returns fn -> (streams, totals,
+    overflow)."""
+    if mesh is None:
+        return jax.jit(local_fn)
 
+    from jax.sharding import PartitionSpec as P
 
-def _gray_raw_ok(local_bsz: int, ph: int, pw: int, cfg: EncodeConfig,
-                 cap: int) -> bool:
-    """Whether the all-Pallas gray batch body applies: per-device batch
-    divisible by the packing ratio, bounded per-image rows per segment,
-    stream buffer in VMEM."""
-    from .ops import pallas_transform as pt
+    axis = mesh.axis_names[0]
 
-    wsb, r, ncg = _slot_geom(pw // 8)
-    nb = (ph // 8) * (pw // 8)
-    rows_pp = -(-ph // pt.TILE_H) * (pt.TILE_H // 8)
-    rps = rows_pp * (ncg if r == 1 else 1)
-    return (
-        cap <= 16
-        and local_bsz % r == 0
-        and rps <= 256
-        and (nb * cap // 128 + cap + 8) * 512 <= 12 << 20
+    def shard_fn(*args):
+        streams, totals, overflow = local_fn(*args)
+        return streams, totals, overflow[None]
+
+    sharded = jax.shard_map(
+        shard_fn,
+        mesh=mesh,
+        in_specs=(P(axis),) + (P(),) * (n_in - 1),
+        out_specs=(P(axis), P(axis), P(axis)),
+        check_vma=False,
     )
 
+    def fn(*args):
+        streams, totals, overflow = sharded(*args)
+        return streams, totals, jnp.any(overflow)
 
-def _gray_batch_plane_raw(imgs, cfg: EncodeConfig, is_rgb: bool, ph: int,
-                          pw: int):
-    """Packed-plane Pallas transform + per-image DC chains for the gray
-    batch: [b, ph, pw(,3)] -> (raw [G, 64, 8, 128], dcd [b*nb] i32 in
-    per-image raster order, dcd_raw [G, 8, 128], geom dict). Each image
-    occupies a wsb-block slot (_slot_geom); widths short of the slot are
-    zero-padded here and masked out downstream.
+    return jax.jit(fn)
 
-    SHARED by the batch body and optimize_huffman pass 1: pass 1 must
-    histogram exactly the levels pass 2 encodes (an XLA/Pallas rounding
-    tie-split would otherwise leave a pass-2 symbol with no code — a
-    silently corrupt stream)."""
-    from .ops import color as color_ops
-    from .ops import pallas_transform as pt
 
-    wsb, r, _ = _slot_geom(pw // 8)
-    b = imgs.shape[0]
-    if is_rgb:
-        imgs = jax.vmap(color_ops.rgb_to_y_reference)(imgs)
-    rows_pp = -(-ph // pt.TILE_H) * (pt.TILE_H // 8)  # block rows/img
-    ph_pad = rows_pp * 8
-    wpx = wsb * 8  # slot width in pixels
-    if (ph_pad, wpx) != (ph, pw):
-        imgs = jnp.pad(imgs, ((0, 0), (0, ph_pad - ph), (0, wpx - pw)))
-    # side-by-side packing: [B, ph_pad, wpx] -> [B/r * ph_pad, r*wpx]
-    plane = (
-        imgs.reshape(b // r, r, ph_pad, wpx)
-        .transpose(0, 2, 1, 3)
-        .reshape(b // r * ph_pad, r * wpx)
-    )
-    interp = jax.default_backend() == "cpu"
-    int_mode = cfg.dct_dtype == "int32"
-    raw = pt.transform_plane_raw(
-        plane,
-        jnp.asarray(
-            cfg.luma_quant.astype(np.int32 if int_mode else np.float32)
-        ),
-        cfg.bitexact, interpret=interp, int_mode=int_mode,
-    )
-    ncg = (r * wpx) // pt.TILE_W  # plane column groups (ncg of _slot_geom
-    # when r == 1; exactly 1 when slots pack side by side)
-    nbh_pl, nbw_pl = (b // r) * rows_pp, (r * wpx) // 8
-    nbh_im, nbw_im = ph // 8, pw // 8
-    nb = nbh_im * nbw_im
+def _sharded_stats(local_fn, mesh):
+    """jit(local_fn(imgs, valid_img)) — or, with a mesh, its per-shard
+    histograms psum'd over the batch axis."""
+    if mesh is None:
+        return jax.jit(local_fn)
 
-    # per-image DC chains on the small DC vectors (valid rows AND cols)
-    dc_pl = pt.raw_to_scan(raw[:, :1], nbh_pl, nbw_pl, ncg)[0]
-    dc4 = dc_pl.reshape(b // r, rows_pp, r, wsb).transpose(0, 2, 1, 3)
-    dc_img = dc4[:, :, :nbh_im, :nbw_im]  # [B/r, r, nbh_im, nbw_im]
-    dcd = entropy_device.dc_differences(dc_img.reshape(-1), nb)
-    dcd4 = jnp.pad(
-        dcd.reshape(b // r, r, nbh_im, nbw_im),
-        ((0, 0), (0, 0), (0, rows_pp - nbh_im), (0, wsb - nbw_im)),
-    )
-    dcd_pl = dcd4.transpose(0, 2, 1, 3).reshape(nbh_pl * nbw_pl)
-    dcd_raw = pt.scan_to_raw(dcd_pl, nbh_pl, nbw_pl, ncg)
-    geom = dict(rows_pp=rows_pp, ncg=ncg, wsb=wsb, r=r,
-                nbh_pl=nbh_pl, nbw_pl=nbw_pl,
-                nbh_im=nbh_im, nbw_im=nbw_im)
-    return raw, dcd, dcd_raw, geom
+    from jax.sharding import PartitionSpec as P
+
+    axis = mesh.axis_names[0]
+
+    def shard_fn(imgs, valid_img):
+        st = local_fn(imgs, valid_img)
+        return jax.tree.map(lambda x: jax.lax.psum(x, axis), st)
+
+    return jax.jit(jax.shard_map(
+        shard_fn, mesh=mesh, in_specs=(P(axis), P(axis)), out_specs=P(),
+        check_vma=False,
+    ))
 
 
 @functools.lru_cache(maxsize=128)
@@ -133,191 +87,27 @@ def _batch_encode_fn(
     is_rgb: bool,
     cap_words_per_block: int,
     mesh=None,
-    rt: bool = False,
 ):
-    """Batched fused encode over [bsz, ph, pw(, 3)]: the transform vmaps
-    (dense), then the image axis FOLDS INTO THE BLOCK GRID — one Pallas
-    launch packs every block of every image, and the batched segment
-    concat (treepack.concat_segments_tree) produces one stream per image.
-    This keeps both headline optimizations (fused kernel + deposit top)
-    that a vmapped per-image encode loses to scatters.
-
-    Returns fn(imgs) -> (streams [bsz, nb*cap] u32, total_bits [bsz],
-    overflow). mesh: optional 1-D mesh — the batch axis shards across it
-    via shard_map (pure data parallelism, no collectives). rt=True
-    returns fn(imgs, tabs) taking a runtime Huffman table blob
-    (pallas_pack.pack_runtime_tables) instead of the standard tables —
-    the batched pass 2 of 2-pass optimal coding (raw path only)."""
-    basis_np = cfg.dct_basis()
-    qtable_np = cfg.luma_quant.astype(np.float32)
+    """Batched encode fn(imgs, luts) over [bsz, ph, pw(, 3)]: the
+    transform vmaps, then the image axis FOLDS INTO THE BLOCK AXIS — one
+    symbolize + block pack over every block of every image, and the
+    batched segment concat (treepack.concat_segments_tree) emits one
+    stream per image. Returns (streams [bsz, nb*cap] u32, total_bits
+    [bsz], overflow). mesh: optional 1-D mesh — the batch axis shards
+    across it."""
     nb = (ph // 8) * (pw // 8)
-    cap = cap_words_per_block
-    from .ops import pallas_transform as pt
 
-    wsb, r, _ = _slot_geom(pw // 8)
-    local_bsz = bsz if mesh is None else bsz // mesh.devices.size
-    raw_ok = _gray_raw_ok(local_bsz, ph, pw, cfg, cap)
-    assert raw_ok or not rt, "runtime tables ride the raw path only"
-
-    def encode_local_raw(imgs, tabs=None):
-        """All-Pallas batch body: images pack r-up into one plane for the
-        fused transform + pack kernels; the chunked row merge (ws = the
-        slot width in blocks) keeps each image's stream separate, pad
-        lanes (width short of the slot) and pad rows are masked to zero
-        bits so they vanish in the merge, and the per-segment streaming
-        concat emits one stream per image. No vmapped XLA levels, no
-        [B*nb, 64] coefficient relayouts."""
-        from .entropy import pallas_concat, pallas_pack, treepack
-        from .ops.scan import cumsum_1d
-
+    def encode_local(imgs, luts):
         b = imgs.shape[0]
-        raw, _dcd, dcd_raw, gm = _gray_batch_plane_raw(
-            imgs, cfg, is_rgb, ph, pw
-        )
-        g = raw.shape[0]
-        rows_pp, ncg = gm["rows_pp"], gm["ncg"]
-        nbh_im, nbw_im = gm["nbh_im"], gm["nbw_im"]
-        interp = jax.default_backend() == "cpu"
-
-        w_raw, b_raw, _ = pallas_pack.encode_blocks_pallas(
-            raw, dcd_raw, cap=cap, table=0, custom_tables=tabs,
-            interpret=interp, raw=True,
-        )
-        # zero out per-image pad rows (blocks beyond ph//8; block row of
-        # lane-row (g, s) is (g // ncg) * 8 + s, per-image via % rows_pp)
-        # AND pad lanes (block cols beyond pw//8 within the slot)
-        gi = jnp.arange(g)
-        si = jnp.arange(8)
-        li = jnp.arange(pallas_concat.LANES)
-        br = ((gi[:, None] // ncg) * 8 + si[None, :]) % rows_pp
-        valid = (br < nbh_im)[:, :, None]
-        if r > 1:
-            valid = valid & ((li % wsb) < nbw_im)[None, None, :]
-        else:
-            col = (gi % ncg)[:, None, None] * pallas_concat.LANES + li
-            valid = valid & (col < nbw_im)
-        b_m = jnp.where(valid, b_raw, 0)
-        w_m = jnp.where(valid[:, None], w_raw, 0)
-        overflow = jnp.any(b_m > cap * 32)
-
-        ws = wsb if r > 1 else pallas_concat.LANES
-        segs = pallas_concat.merge_sublanes_pallas(
-            w_m, b_m, ws=ws, interpret=interp
-        )  # [G, 8, R, 128]
-        if r > 1:
-            nc = pallas_concat.LANES // ws
-            cr = segs.shape[2] // nc
-            gpb = rows_pp // 8  # groups per band
-            segs2 = (
-                segs.reshape(b // r, gpb, 8, nc, cr, pallas_concat.LANES)
-                .transpose(0, 3, 1, 2, 4, 5)
-                .reshape(b * rows_pp, cr, pallas_concat.LANES)
-            )
-            chunkbits = jnp.sum(
-                b_m.reshape(g, 8, nc, ws), axis=-1
-            )  # [G, 8, nc]
-            rowbits = (
-                chunkbits.reshape(b // r, gpb, 8, nc)
-                .transpose(0, 3, 1, 2)
-                .reshape(b, rows_pp)
-            )
-            rows_per_seg = rows_pp
-        else:
-            cr = segs.shape[2]
-            if ncg > 1:
-                # flat (g, s) order is (rg, cg, s); the scan needs
-                # (rg, s, cg) — reorder the small per-row segment arrays
-                nrg_pl = g // ncg
-                segs2 = (
-                    segs.reshape(nrg_pl, ncg, 8, cr, pallas_concat.LANES)
-                    .transpose(0, 2, 1, 3, 4)
-                    .reshape(g * 8, cr, pallas_concat.LANES)
-                )
-                rowbits = (
-                    jnp.sum(b_m, axis=-1)
-                    .reshape(nrg_pl, ncg, 8)
-                    .transpose(0, 2, 1)
-                    .reshape(b, rows_pp * ncg)
-                )
-            else:
-                segs2 = segs.reshape(g * 8, cr, pallas_concat.LANES)
-                rowbits = jnp.sum(b_m, axis=-1).reshape(b, rows_pp * ncg)
-            rows_per_seg = rows_pp * ncg
-
-        inc = jax.vmap(cumsum_1d)(rowbits)
-        offs = (inc - rowbits).reshape(-1)
-        totals = inc[:, -1].astype(jnp.int32)
-        out_rows = -(-(nb * cap) // pallas_concat.LANES) + cr + 3
-        streams = pallas_concat._stream_concat_rows(
-            segs2, offs, rows_per_seg=rows_per_seg, out_rows=out_rows,
-            interpret=interp,
-        ).reshape(b, out_rows * pallas_concat.LANES)[:, : nb * cap]
-        streams, totals = treepack.apply_tail_padding_segments(
-            streams, totals, cfg.pad_ones
-        )
-        return streams, totals, overflow
-
-    def encode_local(imgs, tabs=None):
-        if raw_ok:
-            return encode_local_raw(imgs, tabs)
-        b = imgs.shape[0]
-        zz = jax.vmap(
-            lambda im: pipeline._gray_levels(
-                im, cfg, jnp.asarray(basis_np), jnp.asarray(qtable_np), is_rgb
-            )
-        )(imgs)
+        zz = jax.vmap(lambda im: pipeline._gray_levels(im, cfg, is_rgb))(imgs)
         flat = zz.reshape(b * nb, 64).astype(jnp.int32)
         dcd = entropy_device.dc_differences(flat[:, 0], nb)
         return entropy_device.encode_segments_device(
             flat, nb, b * nb, 0, dcd, cap_words_per_block,
-            pad_ones=cfg.pad_ones,
+            pad_ones=cfg.pad_ones, luts=luts,
         )
 
-    if mesh is None:
-        if rt:
-            return jax.jit(encode_local)
-        return jax.jit(lambda imgs: encode_local(imgs))
-
-    from jax.sharding import PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-
-    if rt:
-        def shard_fn_rt(imgs, tabs):
-            streams, totals, overflow = encode_local(imgs, tabs)
-            return streams, totals, overflow[None]
-
-        sharded_rt = jax.shard_map(
-            shard_fn_rt,
-            mesh=mesh,
-            in_specs=(P(axis), P()),
-            out_specs=(P(axis), P(axis), P(axis)),
-            check_vma=False,
-        )
-
-        def fn_rt(imgs, tabs):
-            streams, totals, overflow = sharded_rt(imgs, tabs)
-            return streams, totals, jnp.any(overflow)
-
-        return jax.jit(fn_rt)
-
-    def shard_fn(imgs):
-        streams, totals, overflow = encode_local(imgs)
-        return streams, totals, overflow[None]
-
-    sharded = jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=P(axis),
-        out_specs=(P(axis), P(axis), P(axis)),
-        check_vma=False,
-    )
-
-    def fn(imgs):
-        streams, totals, overflow = sharded(imgs)
-        return streams, totals, jnp.any(overflow)
-
-    return jax.jit(fn)
+    return _sharded(encode_local, mesh, 2)
 
 
 def _bucket_batch(n: int) -> int:
@@ -329,133 +119,20 @@ def _batch_gray_stats_fn(bsz: int, ph: int, pw: int, cfg: EncodeConfig,
                          is_rgb: bool, mesh=None):
     """Jitted pass 1 of BATCHED 2-pass optimal coding: [bsz, ph, pw(,3)]
     -> symbol count tensors summed over the whole batch (one ~2 KB
-    download). Levels come from the SAME packed-plane Pallas transform
-    the rt batch body encodes (_gray_batch_plane_raw), with per-image DC
-    chains and kernel-pad blocks excluded."""
-    from .ops import pallas_transform as pt
-
-    _, r, _ = _slot_geom(pw // 8)
+    download), per-image DC chains; bucket-padding images (valid_img
+    False) are excluded."""
     nb = (ph // 8) * (pw // 8)
 
     def stats_local(imgs, valid_img):
         b = imgs.shape[0]
-        raw, dcd, _, gm = _gray_batch_plane_raw(imgs, cfg, is_rgb, ph, pw)
-        zz_pl = pt.raw_to_scan(raw, gm["nbh_pl"], gm["nbw_pl"], gm["ncg"]).T
-        z = (
-            zz_pl.reshape(b // r, gm["rows_pp"], r, gm["wsb"], 64)
-            .transpose(0, 2, 1, 3, 4)[:, :, : gm["nbh_im"], : gm["nbw_im"]]
-            .reshape(-1, 64)
-        )
+        zz = jax.vmap(lambda im: pipeline._gray_levels(im, cfg, is_rgb))(imgs)
         # bucket-padding images must not bias the shared tables
-        valid = jnp.repeat(valid_img, nb)
-        return entropy_device.symbol_histograms(z, dc_diff=dcd, valid=valid)
-
-    if mesh is None:
-        return jax.jit(stats_local)
-
-    from jax.sharding import PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-
-    def shard_fn(imgs, valid_img):
-        st = stats_local(imgs, valid_img)
-        return jax.tree.map(lambda x: jax.lax.psum(x, axis), st)
-
-    sharded = jax.shard_map(
-        shard_fn, mesh=mesh, in_specs=(P(axis), P(axis)), out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
-def _encode_gray_batch_optimized(
-    images: list[np.ndarray], config: EncodeConfig, mesh=None,
-) -> list[bytes]:
-    """Batched 2-pass optimal-Huffman encode with SHARED tables: one
-    histogram dispatch over the whole batch, one host package-merge on
-    the ~2 KB summed counts, one batched re-encode with the tables as
-    runtime data — O(1) dispatches for any batch size. The tables are
-    optimal for the BATCH (every file is still a standalone baseline
-    JPEG declaring its tables in DHT); callers who need per-image
-    optimal tables encode images individually via pipeline (the
-    reference's fixed-table design has neither — jpeg_tables.c:3-48)."""
-    from . import tables
-    from .entropy import pallas_pack
-
-    groups = defaultdict(list)
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        ph, pw = blocks.padded_dims(h, w)
-        groups[(ph, pw, img.ndim == 3)].append(i)
-
-    out: list[bytes | None] = [None] * len(images)
-    for (ph, pw, is_rgb), idxs in groups.items():
-        _, r, _ = _slot_geom(pw // 8)
-        unit = r * (mesh.devices.size if mesh is not None else 1)
-        bsz = -(-_bucket_batch(len(idxs)) // unit) * unit
-        local = bsz if mesh is None else bsz // mesh.devices.size
-        if not _gray_raw_ok(local, ph, pw, config, 8):
-            for i in idxs:  # staged shapes: per-image 2-pass
-                out[i] = pipeline.encode_grayscale(images[i], config)
-            continue
-        batch = []
-        for i in idxs:
-            img = images[i]
-            h, w = img.shape[:2]
-            if (ph, pw) != (h, w):
-                pad = [(0, ph - h), (0, pw - w)] + [(0, 0)] * (img.ndim - 2)
-                img = np.pad(img, pad, mode="edge")
-            batch.append(img)
-        while len(batch) < bsz:
-            batch.append(np.zeros_like(batch[0]))
-        arr = _device_batch(batch, mesh)
-
-        valid_img = _device_batch_flags(
-            np.arange(bsz) < len(idxs), mesh
+        return entropy_device.symbol_histograms(
+            zz.reshape(b * nb, 64), seg_len=nb,
+            valid=jnp.repeat(valid_img, nb),
         )
-        stats = jax.device_get(
-            _batch_gray_stats_fn(bsz, ph, pw, config, is_rgb, mesh)(
-                arr, valid_img
-            )
-        )
-        # FLOORED frequencies: pass 1 and pass 2 are separately compiled
-        # XLA programs (tables.floor_frequencies documents the hazard —
-        # a cross-program rounding tie must never select a code-less
-        # symbol).
-        freqs = tables.floor_frequencies(
-            entropy_device.assemble_histograms(stats)
-        )
-        specs = {
-            k: tables.optimal_spec(freqs[k]) for k in ("dc_lum", "ac_lum")
-        }
-        luts = tables.huffman_luts_from_specs(specs)
-        tabs = jnp.asarray(
-            pallas_pack.pack_runtime_tables(
-                luts["dc_lum"][0], luts["dc_lum"][1],
-                luts["ac_lum"][0], luts["ac_lum"][1],
-            )
-        )
-        done = False
-        for cap in pipeline.capacity_ladder(config):
-            if not _gray_raw_ok(local, ph, pw, config, cap):
-                break  # runtime tables ride the raw path only
-            fn = _batch_encode_fn(bsz, ph, pw, config, is_rgb, cap, mesh,
-                                  rt=True)
-            streams, totals, overflow = fn(arr, tabs)
-            if not bool(overflow):
-                streams, totals = jax.device_get((streams, totals))
-                done = True
-                break
-        if not done:  # pathological content: per-image host 2-pass
-            for i in idxs:
-                out[i] = pipeline.encode_grayscale(images[i], config)
-            continue
-        segs = pipeline.segments_from_streams(streams, totals)
-        for j, i in enumerate(idxs):
-            h, w = images[i].shape[:2]
-            out[i] = jfif.assemble(w, h, config, [segs[j]],
-                                   huffman_specs=specs)
-    return out  # type: ignore[return-value]
+
+    return _sharded_stats(stats_local, mesh)
 
 
 @functools.lru_cache(maxsize=32)
@@ -463,533 +140,117 @@ def _batch_color_stats_fn(bsz: int, ph: int, pw: int, cfg: EncodeConfig,
                           mesh=None):
     """Jitted pass 1 of BATCHED color 2-pass optimal coding:
     [bsz, 3, ph, pw] planar RGB -> per-class symbol count tensors summed
-    over the batch. Levels come from the SAME packed-plane Pallas
-    transforms the rt batch body encodes (_color_batch_plane_raw), with
-    per-image per-component DC chains; histograms are order-independent,
-    so blocks stay in raster order (no interleave gather)."""
-    from .ops import pallas_transform as pt
+    over the batch, per-image per-component DC chains."""
+    from . import color_pipeline as cp
+
+    _, table_sel, comp_id = cp._scan_layout(ph, pw, cfg.subsampling)
+    nslots = table_sel.shape[0]
 
     def stats_local(imgs, valid_img):
         b = imgs.shape[0]
-        raw_y, raw_c, _, _, ras, gm = _color_batch_plane_raw(
-            imgs, cfg, ph, pw
+        zz = jax.vmap(lambda im: cp._color_levels(im, cfg))(imgs)
+        zz = zz.reshape(b * nslots, 64).astype(jnp.int32)
+        dcd = cp._per_component_dc_diff(
+            zz[:, 0], np.tile(comp_id, b), nslots
         )
-        fy, fx, r = gm["fy"], gm["fx"], gm["r"]
-        nmch, nmcw, wsb_c = gm["nmch"], gm["nmcw"], gm["wsb_c"]
-        hby, hbc = gm["hby"], gm["hbc"]
-        ny_im = fy * fx * gm["nmcu_im"]
-        nc_im = gm["nmcu_im"]
-
-        zy = (
-            pt.raw_to_scan(raw_y, gm["nbh_y"], gm["nbw_y"], fx * gm["ncg_c"])
-            .T.reshape(b // r, hby, r, fx * wsb_c, 64)
-            .transpose(0, 2, 1, 3, 4)[:, :, : fy * nmch, : fx * nmcw]
-            .reshape(-1, 64)
-        )
-        raw_c5 = raw_c.reshape(2, gm["gc"], 64, pt.SUBLANES, pt.LANES)
-        zc = []
-        for i in range(2):
-            zc.append(
-                pt.raw_to_scan(raw_c5[i], gm["nbh_c"], gm["nbw_c"],
-                               gm["ncg_c"])
-                .T.reshape(b // r, hbc, r, wsb_c, 64)
-                .transpose(0, 2, 1, 3, 4)[:, :, :nmch, :nmcw]
-                .reshape(-1, 64)
-            )
-        zz = jnp.concatenate([zy] + zc)
-        dcd = jnp.concatenate([
-            ras["dcd_y"].reshape(-1),
-            ras["dcd_cb"].reshape(-1),
-            ras["dcd_cr"].reshape(-1),
-        ])
-        tsel = jnp.concatenate([
-            jnp.zeros(b * ny_im, jnp.int32),
-            jnp.ones(2 * b * nc_im, jnp.int32),
-        ])
-        valid = jnp.concatenate([
-            jnp.repeat(valid_img, ny_im),
-            jnp.repeat(valid_img, nc_im),
-            jnp.repeat(valid_img, nc_im),
-        ])
         return entropy_device.symbol_histograms(
-            zz, table_sel=tsel, dc_diff=dcd, valid=valid
+            zz, table_sel=jnp.asarray(np.tile(table_sel, b)), dc_diff=dcd,
+            valid=jnp.repeat(valid_img, nslots),
         )
 
-    if mesh is None:
-        return jax.jit(stats_local)
-
-    from jax.sharding import PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-
-    def shard_fn(imgs, valid_img):
-        st = stats_local(imgs, valid_img)
-        return jax.tree.map(lambda x: jax.lax.psum(x, axis), st)
-
-    sharded = jax.shard_map(
-        shard_fn, mesh=mesh, in_specs=(P(axis), P(axis)), out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
-def _color_raw_ok(bsz: int, ph: int, pw: int, cfg: EncodeConfig,
-                  cap: int) -> bool:
-    """Whether the all-Pallas batched color body applies: per-device
-    batch divisible by the packing ratio (_slot_geom on the chroma block
-    width — any geometry packs, pad lanes are masked), first-rung
-    capacity (the chunked row merge unrolls SR = E*cap + 2 rows),
-    bounded per-image stream buffer + per-step rows in VMEM."""
-    from .ops import pallas_transform as pt
-
-    if cap > 8:
-        return False
-    fy = 2 if cfg.subsampling == "420" else 1
-    fx = 1 if cfg.subsampling == "444" else 2
-    mh, mw = ph // fy, pw // fx
-    wsb, r, ncg_c = _slot_geom(mw // 8)
-    if bsz % r != 0:
-        return False
-    kh = -(-mh // pt.TILE_H) * pt.TILE_H
-    rows_per_seg = (kh // 8) * (ncg_c if r == 1 else 1)
-    if rows_per_seg > 256:
-        return False
-    mcap = (fy * fx + 2) * cap
-    nmcu = (mh // 8) * (mw // 8)
-    out_rows = -(-(nmcu * mcap) // 128) + mcap + 8
-    # stream-rows kernel: per-step output block + double-buffered input
-    ws = wsb if r > 1 else 128
-    cr = -(-(ws * mcap + mcap + 2) // 128)
-    step_bytes = rows_per_seg * cr * 128 * 4
-    return out_rows * 512 + 2 * step_bytes <= 12 << 20
-
-
-def _color_batch_plane_raw(imgs, cfg: EncodeConfig, ph: int, pw: int):
-    """Packed-plane Pallas transforms + per-image per-component DC
-    chains for the color batch: planar RGB [b, 3, ph, pw] ->
-    (raw_y, raw_c, dcd_y_raw, dcd_c_raw, rasters, geom).
-
-    SHARED by the batch body and optimize_huffman pass 1 (pass 1 must
-    histogram exactly the levels pass 2 encodes). rasters holds the
-    per-image-raster DC differences (dcd_y [b, fy*nmch, fx*nmcw],
-    dcd_cb/dcd_cr [b, nmch, nmcw]) the stats path pairs with levels."""
-    from .ops import pallas_transform as pt
-
-    b = imgs.shape[0]
-    fy = 2 if cfg.subsampling == "420" else 1
-    fx = 1 if cfg.subsampling == "444" else 2
-    mh, mw = ph // fy, pw // fx
-    wsb_c, r, _ = _slot_geom(mw // 8)
-    kh = -(-mh // pt.TILE_H) * pt.TILE_H
-    wpx_c = wsb_c * 8  # chroma slot width in pixels
-    wc = r * wpx_c  # stacked chroma width (multiple of TILE_W)
-    ncg_c = wc // pt.TILE_W
-    nmch, nmcw = mh // 8, mw // 8
-    nmcu_im = nmch * nmcw
-    interp = jax.default_backend() == "cpu"
-
-    # ONE uint8 band relayout of planar RGB (r images side by side per
-    # band, rows zero-padded to the kernel tile, width to the slot; pad
-    # blocks are masked downstream) — the color convert and the chroma
-    # box filter ride INSIDE the fused transform kernels
-    # (pt.transform_rgb_y_raw / transform_rgb_chroma_raw), so the
-    # intermediate Y/Cb/Cr planes never touch HBM. Vertical stacking is
-    # safe: image heights are MCU multiples, so 2x2 averaging groups
-    # never straddle an image boundary.
-    x = imgs.transpose(1, 0, 2, 3).reshape(3, b // r, r, ph, pw)
-    if (fy * kh, fx * wpx_c) != (ph, pw):
-        x = jnp.pad(
-            x,
-            ((0, 0), (0, 0), (0, 0), (0, fy * kh - ph),
-             (0, fx * wpx_c - pw)),
-        )
-    rgb_pl = x.transpose(0, 1, 3, 2, 4).reshape(
-        3, b // r * fy * kh, r * fx * wpx_c
-    )
-
-    int_mode = cfg.dct_dtype == "int32"
-    qdt = np.int32 if int_mode else np.float32
-    qtl = jnp.asarray(cfg.luma_quant.astype(qdt))
-    qtc = jnp.asarray(cfg.chroma_quant.astype(qdt))
-    raw_y = pt.transform_rgb_y_raw(rgb_pl, qtl, cfg.bitexact,
-                                   interpret=interp, int_mode=int_mode)
-    raw_c = pt.transform_rgb_chroma_raw(
-        rgb_pl, qtc, cfg.subsampling, cfg.bitexact,
-        interpret=interp, int_mode=int_mode,
-    )
-    gc = raw_c.shape[0] // 2
-
-    # --- per-image DC chains on the tiny DC vectors ---
-    # Y: interleaved-scan order is (mcu_row, mcu_col, dy, dx) per
-    # image; kernel-pad rows (blocks >= fy*nmch in a band) and pad cols
-    # (blocks >= fx*nmcw in a slot) get dcd = 0 so pad blocks emit
-    # ~6-bit EOB-only streams.
-    nbh_y, nbw_y = (b // r) * fy * kh // 8, r * fx * wsb_c
-    hby = fy * kh // 8  # Y block rows per band
-    dc_y = pt.raw_to_scan(raw_y[:, :1], nbh_y, nbw_y, fx * ncg_c)[0]
-    d = dc_y.reshape(b // r, hby, r, fx * wsb_c).transpose(0, 2, 1, 3)
-    d = d[:, :, : fy * nmch, : fx * nmcw].reshape(
-        b, fy * nmch, fx * nmcw
-    )
-    # per-image interleaved-scan DC diff in NATURAL raster layout
-    # (parity-masked shifts; see color_pipeline._y_dc_diff_natural —
-    # the scan-order transpose round trip has 2-wide minor dims the
-    # TPU layout pads ~64x)
-    from . import color_pipeline as _cp
-
-    dcd_y_ras = jax.vmap(
-        lambda x: _cp._y_dc_diff_natural(x, cfg.subsampling)
-    )(d)
-    d = dcd_y_ras.reshape(b // r, r, fy * nmch, fx * nmcw)
-    d = jnp.pad(d, ((0, 0), (0, 0), (0, hby - fy * nmch),
-                    (0, fx * (wsb_c - nmcw))))
-    dcd_y_pl = d.transpose(0, 2, 1, 3).reshape(nbh_y * nbw_y)
-    dcd_y_raw = pt.scan_to_raw(dcd_y_pl, nbh_y, nbw_y, fx * ncg_c)
-
-    nbh_c, nbw_c = (b // r) * kh // 8, wc // 8
-    hbc = kh // 8
-    raw_c5 = raw_c.reshape(2, gc, 64, pt.SUBLANES, pt.LANES)
-    dcd_c_raws, dcd_c_ras = [], []
-    for i in range(2):  # independent Cb / Cr chains per image
-        dcc = pt.raw_to_scan(raw_c5[i, :, :1], nbh_c, nbw_c, ncg_c)[0]
-        e = dcc.reshape(b // r, hbc, r, wsb_c).transpose(0, 2, 1, 3)
-        e = e[:, :, :nmch, :nmcw].reshape(-1)
-        ed = entropy_device.dc_differences(e, nmcu_im)
-        dcd_c_ras.append(ed.reshape(b, nmch, nmcw))
-        e = ed.reshape(b // r, r, nmch, nmcw)
-        e = jnp.pad(e, ((0, 0), (0, 0), (0, hbc - nmch),
-                        (0, wsb_c - nmcw)))
-        e_pl = e.transpose(0, 2, 1, 3).reshape(nbh_c * nbw_c)
-        dcd_c_raws.append(pt.scan_to_raw(e_pl, nbh_c, nbw_c, ncg_c))
-    dcd_c_raw = jnp.stack(dcd_c_raws).reshape(2 * gc, pt.SUBLANES, pt.LANES)
-    rasters = dict(dcd_y=dcd_y_ras, dcd_cb=dcd_c_ras[0], dcd_cr=dcd_c_ras[1])
-    geom = dict(fy=fy, fx=fx, r=r, kh=kh, wc=wc, ncg_c=ncg_c, gc=gc,
-                wsb_c=wsb_c, nmch=nmch, nmcw=nmcw, nmcu_im=nmcu_im,
-                hby=hby, hbc=hbc,
-                nbh_y=nbh_y, nbw_y=nbw_y, nbh_c=nbh_c, nbw_c=nbw_c)
-    return raw_y, raw_c, dcd_y_raw, dcd_c_raw, rasters, geom
-
-
-def color_batch_raw_body(imgs, cfg: EncodeConfig, cap: int, ph: int,
-                         pw: int, nslots: int, custom_tables=None):
-    """All-Pallas batched color body: r images pack side by side into
-    the 1024-lane chroma tile (b/r bands stack vertically), the fused
-    transform + pack + natural-layout MCU merge kernels run ONCE over
-    the whole stack, and the chunked row merge (ws = the per-image
-    MCU-column width) + per-segment streaming concat emit one stream
-    per image. merge_mcu_natural_pallas is packing-transparent: its
-    Y-lane realignment maps MCU lane m to Y block col fx*m + sx, and
-    image boundaries land between lanes (chroma width mw is
-    block-aligned), so lanes never mix images.
-
-    imgs: planar RGB [b, 3, ph, pw] (b a multiple of the packing
-    ratio). custom_tables: optional ([192] luma, [192] chroma) runtime
-    Huffman blobs (pallas_pack.pack_runtime_tables) — batched pass 2 of
-    2-pass optimal coding. Returns (streams [b, nslots*cap] u32,
-    totals [b] i32, overflow)."""
-    from .entropy import pallas_concat, pallas_pack, treepack
-    from .ops import pallas_transform as pt
-    from .ops.scan import cumsum_1d
-
-    b = imgs.shape[0]
-    raw_y, raw_c, dcd_y_raw, dcd_c_raw, _ras, gm = _color_batch_plane_raw(
-        imgs, cfg, ph, pw
-    )
-    fy, fx, r = gm["fy"], gm["fx"], gm["r"]
-    kh, ncg_c, gc = gm["kh"], gm["ncg_c"], gm["gc"]
-    nmch, nmcw, wsb_c = gm["nmch"], gm["nmcw"], gm["wsb_c"]
-    interp = jax.default_backend() == "cpu"
-    ct_y = None if custom_tables is None else custom_tables[0]
-    ct_c = None if custom_tables is None else custom_tables[1]
-
-    w_y, b_y, _ = pallas_pack.encode_blocks_pallas(
-        raw_y, dcd_y_raw, cap=cap, table=0, custom_tables=ct_y,
-        interpret=interp, raw=True,
-    )
-    w_c, b_c, _ = pallas_pack.encode_blocks_pallas(
-        raw_c, dcd_c_raw, cap=cap, table=1, custom_tables=ct_c,
-        interpret=interp, raw=True,
-    )
-    overflow = jnp.any(b_y > cap * 32) | jnp.any(b_c > cap * 32)
-    merged, mbits = pallas_pack.merge_mcu_natural_pallas(
-        w_y, b_y,
-        w_c.reshape(2, gc, cap, pt.SUBLANES, pt.LANES),
-        b_c.reshape(2, gc, pt.SUBLANES, pt.LANES),
-        nrg_c=(b // r) * kh // pt.TILE_H, ncg_c=ncg_c,
-        subsampling=cfg.subsampling, interpret=interp,
-    )
-
-    # mask kernel-pad MCU rows (block rows >= nmch within a band) AND
-    # pad MCU lanes (cols >= nmcw within a slot)
-    gci = jnp.arange(gc)
-    si = jnp.arange(pt.SUBLANES)
-    li = jnp.arange(pt.LANES)
-    br = ((gci[:, None] // ncg_c) % (kh // pt.TILE_H)) * 8 + si[None, :]
-    valid = (br < nmch)[:, :, None]
-    if r > 1:
-        valid = valid & ((li % wsb_c) < nmcw)[None, None, :]
-    else:
-        col = (gci % ncg_c)[:, None, None] * pt.LANES + li
-        valid = valid & (col < nmcw)
-    b_m = jnp.where(valid, mbits, 0)
-    w_m = jnp.where(valid[:, None], merged, 0)
-
-    ws = wsb_c if r > 1 else pallas_concat.LANES
-    segs = pallas_concat.merge_sublanes_pallas(
-        w_m, b_m, ws=ws, interpret=interp
-    )
-    gpb = kh // pt.TILE_H  # chroma row-groups per band
-    if r > 1:  # ncg_c == 1 here (r*mw == TILE_W)
-        nc = pallas_concat.LANES // ws
-        crr = segs.shape[2] // nc
-        segs2 = (
-            segs.reshape(b // r, gpb, 8, nc, crr, pallas_concat.LANES)
-            .transpose(0, 3, 1, 2, 4, 5)
-            .reshape(b * gpb * 8, crr, pallas_concat.LANES)
-        )
-        chunkbits = jnp.sum(b_m.reshape(gc, 8, nc, ws), axis=-1)
-        rowbits = (
-            chunkbits.reshape(b // r, gpb, 8, nc)
-            .transpose(0, 3, 1, 2)
-            .reshape(b, gpb * 8)
-        )
-        rows_per_seg = gpb * 8
-    else:
-        crr = segs.shape[2]
-        if ncg_c > 1:
-            # flat (g, s) order is (rg, cg, s); the per-image scan
-            # needs (rg, s, cg)
-            nrg_pl = gc // ncg_c
-            segs2 = (
-                segs.reshape(nrg_pl, ncg_c, 8, crr, pallas_concat.LANES)
-                .transpose(0, 2, 1, 3, 4)
-                .reshape(gc * 8, crr, pallas_concat.LANES)
-            )
-            rowbits = (
-                jnp.sum(b_m, axis=-1)
-                .reshape(nrg_pl, ncg_c, 8)
-                .transpose(0, 2, 1)
-                .reshape(b, gpb * 8 * ncg_c)
-            )
-        else:
-            segs2 = segs.reshape(gc * 8, crr, pallas_concat.LANES)
-            rowbits = jnp.sum(b_m, axis=-1).reshape(b, gpb * 8)
-        rows_per_seg = gpb * 8 * ncg_c
-
-    inc = jax.vmap(cumsum_1d)(rowbits)
-    offs = (inc - rowbits).reshape(-1)
-    totals = inc[:, -1].astype(jnp.int32)
-    out_rows = -(-(nslots * cap) // pallas_concat.LANES) + crr + 3
-    streams = pallas_concat._stream_concat_rows(
-        segs2, offs, rows_per_seg=rows_per_seg, out_rows=out_rows,
-        interpret=interp,
-    ).reshape(b, out_rows * pallas_concat.LANES)[:, : nslots * cap]
-    streams, totals = treepack.apply_tail_padding_segments(
-        streams, totals, cfg.pad_ones
-    )
-    return streams, totals, overflow
+    return _sharded_stats(stats_local, mesh)
 
 
 @functools.lru_cache(maxsize=64)
 def _batch_color_fn(
     bsz: int, ph: int, pw: int, cfg: EncodeConfig, cap_words_per_block: int,
-    mesh=None, rt: bool = False,
+    mesh=None,
 ):
-    """Batched fused color encode over [bsz, ph, pw, 3]: same image-axis
-    fold as _batch_encode_fn — the per-image interleaved scan becomes one
-    flat slot axis with a bsz-tiled static table selector, so the
-    multi-table fused Pallas path and the batched segment concat both
-    apply. Returns fn(imgs) -> (streams, total_bits, overflow); rt=True
-    returns fn(imgs, tabs_luma, tabs_chroma) taking runtime Huffman
-    table blobs (batched pass 2 of 2-pass optimal coding, raw path
-    only)."""
+    """Batched color encode fn(imgs, luts) over planar [bsz, 3, ph, pw]:
+    the per-component transforms vmap, the image axis folds into the
+    per-class block packs and MCU merges (color_pipeline
+    ._color_block_words with per-image DC chains), and the batched
+    segment concat emits one stream per image. Returns (streams,
+    total_bits, overflow)."""
     from . import color_pipeline as cp
 
-    from .entropy import treepack
-
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    gather_idx, table_sel, comp_id = cp._scan_layout(ph, pw, cfg.subsampling)
-    nslots = gather_idx.shape[0]
-    nbh, nbw = ph // 8, pw // 8
+    nslots = cp._scan_layout(ph, pw, cfg.subsampling)[0].shape[0]
     cap = cap_words_per_block
-    local_bsz = bsz if mesh is None else bsz // mesh.devices.size
-    raw_ok = _color_raw_ok(local_bsz, ph, pw, cfg, cap)
-    assert raw_ok or not rt, "runtime tables ride the raw path only"
 
-    def encode_local(imgs, tabs_l=None, tabs_c=None):
-        if raw_ok:
-            ct = None if tabs_l is None else (tabs_l, tabs_c)
-            return color_batch_raw_body(imgs, cfg, cap, ph, pw, nslots,
-                                        custom_tables=ct)
-        # Gather-free batched color pack: the image axis folds into the
-        # Pallas block grid per component class; per-image DC chains are
-        # dc_differences with a per-image reset; the scan-order merge and
-        # per-image split are pure relayouts (cp._color_block_words
-        # semantics, batched).
+    def encode_local(imgs, luts):
         b = imgs.shape[0]
-        zy, zcb, zcr = jax.vmap(
-            lambda im: cp._component_levels(
-                im, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-                jnp.asarray(qtc_np),
-            )
-        )(imgs)
+        zy, zcb, zcr = jax.vmap(lambda im: cp._component_levels(im, cfg))(imgs)
         nmcu = zcb.shape[1]
-        w_all, b_all, overflow = cp._color_block_words_b(
-            zy, zcb, zcr, nbh, nbw, cfg.subsampling, cap
+        w_all, b_all, overflow = cp._color_block_words(
+            zy, zcb, zcr, ph // 8, pw // 8, cfg.subsampling, cap, luts=luts
         )
-        mcu_cap = w_all.shape[0]
-        from .entropy import pallas_concat
-
-        if pallas_concat.segments_pallas_ok(nmcu, mcu_cap):
-            streams, totals = pallas_concat.concat_segments_pallas(
-                w_all.reshape(mcu_cap, b * nmcu),
-                b_all.reshape(b * nmcu),
-                nmcu, nslots * cap,
-                interpret=jax.default_backend() == "cpu",
-            )
-        else:
-            streams, totals = treepack.concat_segments_tree(
-                w_all.reshape(mcu_cap, b, nmcu), b_all.reshape(b, nmcu),
-                out_words_per_seg=nslots * cap
-            )
-        streams, totals = treepack.apply_tail_padding_segments(
-            streams, totals, cfg.pad_ones
-        )
-        return streams, totals, overflow
-
-    if mesh is None:
-        if rt:
-            return jax.jit(encode_local)
-        return jax.jit(lambda imgs: encode_local(imgs))
-
-    from jax.sharding import PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-
-    if rt:
-        def shard_fn_rt(imgs, tabs_l, tabs_c):
-            streams, totals, overflow = encode_local(imgs, tabs_l, tabs_c)
-            return streams, totals, overflow[None]
-
-        sharded_rt = jax.shard_map(
-            shard_fn_rt,
-            mesh=mesh,
-            in_specs=(P(axis), P(), P()),
-            out_specs=(P(axis), P(axis), P(axis)),
-            check_vma=False,
+        return entropy_device.segment_streams(
+            w_all, b_all, nmcu, nslots * cap, cfg.pad_ones, overflow
         )
 
-        def fn_rt(imgs, tabs_l, tabs_c):
-            streams, totals, overflow = sharded_rt(imgs, tabs_l, tabs_c)
-            return streams, totals, jnp.any(overflow)
-
-        return jax.jit(fn_rt)
-
-    def shard_fn(imgs):
-        streams, totals, overflow = encode_local(imgs)
-        return streams, totals, overflow[None]
-
-    sharded = jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=P(axis),
-        out_specs=(P(axis), P(axis), P(axis)),
-        check_vma=False,
-    )
-
-    def fn(imgs):
-        streams, totals, overflow = sharded(imgs)
-        return streams, totals, jnp.any(overflow)
-
-    return jax.jit(fn)
+    return _sharded(encode_local, mesh, 2)
 
 
-def _encode_color_batch_optimized(
-    images: list[np.ndarray], config: EncodeConfig, mesh=None,
-) -> list[bytes]:
-    """Batched color 2-pass optimal-Huffman encode with SHARED tables
-    (one histogram dispatch, one host package-merge, one batched
-    re-encode with runtime tables — see _encode_gray_batch_optimized
-    for the per-image-optimality trade)."""
-    from . import color_pipeline as cp
-    from . import tables
-    from .entropy import pallas_pack
+def _encode_buckets(images, config: EncodeConfig, mesh, prepare, shape_of,
+                    encode_fn, stats_fn, classes) -> list[bytes]:
+    """Shared batch driver: bucket images by padded shape, pad each
+    bucket's batch axis to a power of two (a multiple of the mesh size),
+    optionally run the 2-pass histogram pass (tables SHARED by the
+    bucket), then encode every bucket in one dispatch per capacity rung.
+    Returns files in input order.
 
+    prepare(img, key) -> the padded device-layout image; shape_of(img)
+    -> bucket key; encode_fn(bsz, key, cap) / stats_fn(bsz, key) -> the
+    jitted programs."""
     groups = defaultdict(list)
     for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        ph, pw = cp.padded_dims_color(h, w, config.subsampling)
-        groups[(ph, pw)].append(i)
+        groups[shape_of(img)].append(i)
 
+    n_dev = mesh.devices.size if mesh is not None else 1
     out: list[bytes | None] = [None] * len(images)
-    for (ph, pw), idxs in groups.items():
-        _, rr, _ = _slot_geom(
-            pw // (1 if config.subsampling == "444" else 2) // 8
-        )
-        unit = rr * (mesh.devices.size if mesh is not None else 1)
-        bsz = -(-_bucket_batch(len(idxs)) // unit) * unit
-        local = bsz if mesh is None else bsz // mesh.devices.size
-        if not _color_raw_ok(local, ph, pw, config, 8):
-            for i in idxs:  # staged shapes: per-image 2-pass
-                out[i] = cp.encode_color(images[i], config)
-            continue
-        batch = []
-        for i in idxs:
-            img = images[i]
-            if img.ndim == 2:
-                img = np.repeat(img[..., None], 3, axis=-1)
-            h, w = img.shape[:2]
-            if (ph, pw) != (h, w):
-                img = np.pad(
-                    img, [(0, ph - h), (0, pw - w), (0, 0)], mode="edge"
-                )
-            batch.append(np.ascontiguousarray(np.moveaxis(img, -1, 0)))
+    for key, idxs in groups.items():
+        batch = [prepare(images[i], key) for i in idxs]
+        bsz = -(-_bucket_batch(len(batch)) // n_dev) * n_dev
         while len(batch) < bsz:
             batch.append(np.zeros_like(batch[0]))
-        arr = _device_batch(batch, mesh)
+        arr = _device_batch(np.stack(batch), mesh)
 
-        valid_img = _device_batch_flags(np.arange(bsz) < len(idxs), mesh)
-        stats = jax.device_get(
-            _batch_color_stats_fn(bsz, ph, pw, config, mesh)(arr, valid_img)
-        )
-        # FLOORED frequencies: two separately compiled programs — see
-        # _encode_gray_batch_optimized.
-        freqs = tables.floor_frequencies(
-            entropy_device.assemble_histograms(stats)
-        )
-        specs = tables.optimal_specs_from_frequencies(freqs)
-        luts = tables.huffman_luts_from_specs(specs)
-        tabs = tuple(
-            jnp.asarray(
-                pallas_pack.pack_runtime_tables(
-                    luts[f"dc_{kind}"][0], luts[f"dc_{kind}"][1],
-                    luts[f"ac_{kind}"][0], luts[f"ac_{kind}"][1],
-                )
-            )
-            for kind in ("lum", "chrom")
-        )
-        done = False
+        specs, luts = None, entropy_device.standard_luts()
+        if config.optimize_huffman:
+            # batched 2-pass: one histogram dispatch over the bucket,
+            # one host package-merge, tables optimal for the BATCH
+            # (every file is still a standalone baseline JPEG declaring
+            # its tables in DHT)
+            valid = _device_batch(np.arange(bsz) < len(idxs), mesh)
+            stats = jax.device_get(stats_fn(bsz, key)(arr, valid))
+            specs, luts = pipeline.optimal_tables(stats, classes)
+
         for cap in pipeline.capacity_ladder(config):
-            if not _color_raw_ok(local, ph, pw, config, cap):
-                break  # runtime tables ride the raw path only
-            fn = _batch_color_fn(bsz, ph, pw, config, cap, mesh, rt=True)
-            streams, totals, overflow = fn(arr, *tabs)
+            streams, totals, overflow = encode_fn(bsz, key, cap)(arr, luts)
             if not bool(overflow):
                 streams, totals = jax.device_get((streams, totals))
-                done = True
                 break
-        if not done:  # pathological content: per-image 2-pass
-            for i in idxs:
-                out[i] = cp.encode_color(images[i], config)
-            continue
+        else:
+            raise AssertionError("worst-case entropy capacity overflowed (bug)")
+
         segs = pipeline.segments_from_streams(streams, totals)
         for j, i in enumerate(idxs):
             h, w = images[i].shape[:2]
             out[i] = jfif.assemble(w, h, config, [segs[j]],
                                    huffman_specs=specs)
     return out  # type: ignore[return-value]
+
+
+def _device_batch(arr: np.ndarray, mesh):
+    """Place a host batch (optionally batch-sharded)."""
+    arr = jnp.asarray(arr)
+    if mesh is not None:
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        arr = jax.device_put(
+            arr, NamedSharding(mesh, PartitionSpec(mesh.axis_names[0]))
+        )
+    return arr
 
 
 def encode_color_batch(
@@ -1007,83 +268,23 @@ def encode_color_batch(
     config = config or EncodeConfig(subsampling="420")
     if config.restart_interval or config.entropy != "device":
         # The batched bodies emit single-segment streams with no RSTn
-        # markers, and always pack on-device; a restart-interval or
-        # host-entropy config must ride the per-image encoders (which
-        # route these correctly — pipeline.encode_grayscale's gate).
+        # markers and always pack on-device; a restart-interval or
+        # host-entropy config rides the per-image encoder.
         return [cp.encode_color(img, config) for img in images]
-    if config.optimize_huffman:
-        # batched 2-pass with shared optimal tables: O(1) dispatches
-        return _encode_color_batch_optimized(images, config, mesh)
-    groups = defaultdict(list)
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        ph, pw = cp.padded_dims_color(h, w, config.subsampling)
-        groups[(ph, pw)].append(i)
 
-    out: list[bytes | None] = [None] * len(images)
-    for (ph, pw), idxs in groups.items():
-        batch = []
-        for i in idxs:
-            img = images[i]
-            if img.ndim == 2:
-                img = np.repeat(img[..., None], 3, axis=-1)
-            h, w = img.shape[:2]
-            if (ph, pw) != (h, w):
-                img = np.pad(img, [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
-            # planar [3, PH, PW] at the device boundary (see
-            # color_pipeline._component_levels)
-            batch.append(np.ascontiguousarray(np.moveaxis(img, -1, 0)))
-        bsz = _bucket_batch(len(batch))
-        # pad the batch axis so the all-Pallas body's side-by-side
-        # packing ratio divides the (per-device) batch; zero images
-        # encode to near-empty streams, far cheaper than the staged path
-        _, rr, _ = _slot_geom(
-            pw // (1 if config.subsampling == "444" else 2) // 8
-        )
-        unit = rr * (mesh.devices.size if mesh is not None else 1)
-        bsz = -(-bsz // unit) * unit
-        while len(batch) < bsz:
-            batch.append(np.zeros_like(batch[0]))
-        arr = _device_batch(batch, mesh)
+    def shape_of(img):
+        return cp.padded_dims_color(*img.shape[:2], config.subsampling)
 
-        for cap in pipeline.capacity_ladder(config):
-            fn = _batch_color_fn(bsz, ph, pw, config, cap, mesh)
-            streams, totals, overflow = fn(arr)
-            if not bool(overflow):
-                streams, totals = jax.device_get((streams, totals))
-                break
-        else:
-            raise AssertionError("worst-case entropy capacity overflowed (bug)")
+    def prepare(img, key):
+        # planar [3, PH, PW] at the device boundary
+        return np.moveaxis(cp._pad_color(img, config.subsampling), -1, 0)
 
-        segs = pipeline.segments_from_streams(streams, totals)
-        for j, i in enumerate(idxs):
-            h, w = images[i].shape[:2]
-            out[i] = jfif.assemble(w, h, config, [segs[j]])
-    return out  # type: ignore[return-value]
-
-
-def _device_batch(batch: list[np.ndarray], mesh):
-    """Stack a host batch and place it (optionally batch-sharded)."""
-    arr = jnp.asarray(np.stack(batch))
-    if mesh is not None:
-        from jax.sharding import NamedSharding, PartitionSpec
-
-        arr = jax.device_put(
-            arr, NamedSharding(mesh, PartitionSpec(mesh.axis_names[0]))
-        )
-    return arr
-
-
-def _device_batch_flags(flags: np.ndarray, mesh):
-    """Place a per-image bool vector (optionally batch-sharded)."""
-    arr = jnp.asarray(flags)
-    if mesh is not None:
-        from jax.sharding import NamedSharding, PartitionSpec
-
-        arr = jax.device_put(
-            arr, NamedSharding(mesh, PartitionSpec(mesh.axis_names[0]))
-        )
-    return arr
+    return _encode_buckets(
+        images, config, mesh, prepare, shape_of,
+        lambda bsz, key, cap: _batch_color_fn(bsz, *key, config, cap, mesh),
+        lambda bsz, key: _batch_color_stats_fn(bsz, *key, config, mesh),
+        cp.COLOR_CLASSES,
+    )
 
 
 def encode_grayscale_batch(
@@ -1095,59 +296,24 @@ def encode_grayscale_batch(
     streams in one-or-few device dispatches. Returns files in input order.
 
     mesh: optional 1-D jax.sharding.Mesh — the batch axis shards across
-    its devices (data parallelism over images, SURVEY.md §2.4): each chip
-    encodes its images independently, no collectives at all."""
+    its devices (data parallelism over images, SURVEY.md §2.4): each
+    device encodes its images independently, no collectives at all."""
     config = config or EncodeConfig()
     if config.restart_interval or config.entropy != "device":
-        # The batched bodies emit single-segment streams with no RSTn
-        # markers, and always pack on-device; a restart-interval or
-        # host-entropy config must ride the per-image encoders (which
-        # route these correctly — pipeline.encode_grayscale's gate).
+        # see encode_color_batch
         return [pipeline.encode_grayscale(img, config) for img in images]
-    if config.optimize_huffman:
-        # batched 2-pass with shared optimal tables: O(1) dispatches
-        # (see _encode_gray_batch_optimized for the trade)
-        return _encode_gray_batch_optimized(images, config, mesh)
 
-    # bucket by (padded shape, rgb-ness)
-    groups = defaultdict(list)
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        ph, pw = blocks.padded_dims(h, w)
-        groups[(ph, pw, img.ndim == 3)].append(i)
+    def shape_of(img):
+        return (*blocks.padded_dims(*img.shape[:2]), img.ndim == 3)
 
-    out: list[bytes | None] = [None] * len(images)
-    for (ph, pw, is_rgb), idxs in groups.items():
-        batch = []
-        for i in idxs:
-            img = images[i]
-            h, w = img.shape[:2]
-            if (ph, pw) != (h, w):
-                pad = [(0, ph - h), (0, pw - w)] + [(0, 0)] * (img.ndim - 2)
-                img = np.pad(img, pad, mode="edge")
-            batch.append(img)
-        bsz = _bucket_batch(len(batch))
-        # pad the batch axis so the all-Pallas body's side-by-side
-        # packing ratio divides the (per-device) batch; zero images
-        # encode to near-empty streams, far cheaper than the staged path
-        _, r, _ = _slot_geom(pw // 8)
-        unit = r * (mesh.devices.size if mesh is not None else 1)
-        bsz = -(-bsz // unit) * unit
-        while len(batch) < bsz:
-            batch.append(np.zeros_like(batch[0]))
-        arr = _device_batch(batch, mesh)
+    def prepare(img, key):
+        return pipeline._pad_to_blocks(img)
 
-        for cap in pipeline.capacity_ladder(config):
-            fn = _batch_encode_fn(bsz, ph, pw, config, is_rgb, cap, mesh)
-            streams, totals, overflow = fn(arr)
-            if not bool(overflow):
-                streams, totals = jax.device_get((streams, totals))
-                break
-        else:
-            raise AssertionError("worst-case entropy capacity overflowed (bug)")
-
-        segs = pipeline.segments_from_streams(streams, totals)
-        for j, i in enumerate(idxs):
-            h, w = images[i].shape[:2]
-            out[i] = jfif.assemble(w, h, config, [segs[j]])
-    return out  # type: ignore[return-value]
+    return _encode_buckets(
+        images, config, mesh, prepare, shape_of,
+        lambda bsz, key, cap: _batch_encode_fn(
+            bsz, key[0], key[1], config, key[2], cap, mesh),
+        lambda bsz, key: _batch_gray_stats_fn(
+            bsz, key[0], key[1], config, key[2], mesh),
+        pipeline.GRAY_CLASSES,
+    )

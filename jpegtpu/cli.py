@@ -118,7 +118,7 @@ def _cmd_encode_dir(args) -> int:
 
 def _cmd_profile(args) -> int:
     """Per-stage timing table of the production encode path — the
-    reference's cycle report (dsp main.c:137-172), TPU-style."""
+    reference's cycle report (dsp main.c:137-172)."""
     from . import profiling
     from .config import EncodeConfig
     from .io import bmp as bmp_io
@@ -181,6 +181,9 @@ def _cmd_analyze_dir(args) -> int:
 
 
 def main(argv=None) -> int:
+    from . import compile_cache
+
+    compile_cache.enable()
     p = argparse.ArgumentParser(prog="jpegtpu")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -195,7 +198,7 @@ def main(argv=None) -> int:
     enc.add_argument("--entropy", choices=["device", "host"], default="device")
     enc.add_argument(
         "--optimize-huffman", action="store_true",
-        help="2-pass optimal Huffman tables (smaller files, host entropy)",
+        help="2-pass optimal Huffman tables (smaller files)",
     )
     enc.add_argument(
         "--sharded", action="store_true",
@@ -218,7 +221,7 @@ def main(argv=None) -> int:
         "--pipeline", type=int, default=0, metavar="DEPTH",
         help="overlapped per-image dispatch with DEPTH encodes in flight "
         "(jpegtpu.serving) instead of shape-bucketed batching — for "
-        "directories of heterogeneous shapes on locally-attached chips",
+        "directories of heterogeneous shapes",
     )
     encd.add_argument("--stats", action="store_true")
     encd.set_defaults(fn=_cmd_encode_dir)

@@ -2,11 +2,10 @@
 
 A capability the reference lacks entirely — it discards chroma at
 conversion (natural_c converter.c:51 keeps only Y; SURVEY.md §2.1 "scope
-boundaries"). Built TPU-first: all three components' block transforms run
-as one batched MXU pipeline, and the interleaved-MCU scan order is a
-STATIC permutation (precomputed per shape, free gather under XLA) feeding
-the shared on-device entropy coder with per-block table selectors and
-per-component DC chains.
+boundaries"). Each component runs the tiled block-diagonal transform,
+its blocks are packed per Huffman table class by the shared on-device
+entropy coder, and the per-block streams merge into per-MCU streams in
+the interleaved scan order (T.81 A.2.3) with per-component DC chains.
 
 Layout (T.81 A.2.3): for 4:2:0 one MCU = 4 Y blocks (2x2) + Cb + Cr;
 for 4:2:2 one MCU = 2 Y (horizontal pair) + Cb + Cr; for 4:4:4 one MCU =
@@ -21,11 +20,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from . import pipeline, tables
 from .config import EncodeConfig
 from .entropy import device as entropy_device
 from .entropy import host as entropy_host
+from .entropy import treepack
 from .io import jfif
 from .ops import color
+
+COLOR_CLASSES = ("dc_lum", "ac_lum", "dc_chrom", "ac_chrom")
 
 
 # per-mode geometry: MCU pixel size, Y blocks per MCU, slots per MCU
@@ -134,15 +137,15 @@ def _per_component_dc_diff(
     return dc - prev
 
 
-def _component_levels(img, cfg: EncodeConfig, basis, qt_luma, qt_chroma):
+def _component_levels(img, cfg: EncodeConfig):
     """Padded PLANAR RGB [3, PH, PW] -> per-component zigzag levels
     (zy [ny, 64], zcb [nc, 64], zcr [nc, 64]), each in raster block order.
 
-    Planar input is the device-boundary contract: interleaved [PH, PW, 3]
-    puts 3 elements on the minor axis, which the TPU layout pads ~40x and
-    every channel slice then re-relayouts (measured ~29 ms of the color
-    transform stage). The reference's DSP host stores planar channels in
-    shared DDR for the same reason (dsp bmp_handler.c:78-80)."""
+    Planar input is the device-boundary contract: every channel is a
+    contiguous plane, as the reference's DSP host stores them in shared
+    DDR (dsp bmp_handler.c:78-80)."""
+    from .ops import fused_transform
+
     y, cb, cr = color.rgb_planar_to_ycbcr(img)
     if cfg.subsampling == "420":
         cb = color.subsample_420(cb)
@@ -150,12 +153,11 @@ def _component_levels(img, cfg: EncodeConfig, basis, qt_luma, qt_chroma):
     elif cfg.subsampling == "422":
         cb = color.subsample_422(cb)
         cr = color.subsample_422(cr)
+    qt_luma = jnp.asarray(cfg.luma_quant.astype(np.float32))
+    qt_chroma = jnp.asarray(cfg.chroma_quant.astype(np.float32))
 
     def component_levels(chan, qt):
-        # Tiled block-diagonal MXU transform (same fast path as grayscale);
-        # channels are 8-aligned already, pad to tile multiples in-graph.
-        from .ops import fused_transform
-
+        # channels are 8-aligned already; pad to tile multiples in-graph
         ch, cw = chan.shape
         th, tw = fused_transform.padded_dims_tile(ch, cw)
         if (th, tw) != (ch, cw):
@@ -170,231 +172,41 @@ def _component_levels(img, cfg: EncodeConfig, basis, qt_luma, qt_chroma):
             chan, qt, bitexact=cfg.bitexact, out_blocks=(ch // 8, cw // 8)
         )
 
-    zy = component_levels(y, qt_luma)
-    zcb = component_levels(cb, qt_chroma)
-    zcr = component_levels(cr, qt_chroma)
-    return zy, zcb, zcr
+    return (component_levels(y, qt_luma), component_levels(cb, qt_chroma),
+            component_levels(cr, qt_chroma))
 
 
-def _color_levels(img, cfg: EncodeConfig, basis, qt_luma, qt_chroma):
+def _color_levels(img, cfg: EncodeConfig):
     """Padded PLANAR RGB [3, PH, PW] -> interleaved zigzag levels
     [nslots, 64] (scan order; the host-coder / test-oracle layout)."""
     ph, pw = img.shape[1:]
-    zy, zcb, zcr = _component_levels(img, cfg, basis, qt_luma, qt_chroma)
+    zy, zcb, zcr = _component_levels(img, cfg)
     allz = jnp.concatenate([zy, zcb, zcr], axis=0)
     gather_idx, _, _ = _scan_layout(ph, pw, cfg.subsampling)
     return allz[jnp.asarray(gather_idx)]
 
 
-def _y_scan_relayout(zy, nbh: int, nbw: int, subsampling: str):
-    """Y raster blocks -> scan emission order. For 4:2:0 the scan visits
-    2x2 Y blocks per MCU (T.81 A.2.3) — a pure reshape/transpose, NOT a
-    gather; 4:2:2 visits horizontal pairs (already raster order), and
-    4:4:4 scan order IS raster order. Returns (y_scan, Y blocks/MCU)."""
-    ky = _MODES[subsampling]["ky"]
-    if subsampling != "420":
-        return zy, ky
-    return (
-        zy.reshape(nbh // 2, 2, nbw // 2, 2, 64)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(-1, 64),
-        ky,
-    )
-
-
-def _y_slot_major(zy, nbh: int, nbw: int, subsampling: str):
-    """Y raster blocks -> SLOT-MAJOR layout [ky, nmcu, 64]: row s holds
-    every MCU's s-th Y block (scan emission order within the MCU). Pure
-    major-axis reshape/transpose — the 64-lane minor axis never moves.
-    Accepts a leading batch axis ([b, ny, 64] -> [ky, b*nmcu, 64])."""
-    ky = _MODES[subsampling]["ky"]
-    lead = zy.shape[:-2]
-    if subsampling == "420":
-        z = zy.reshape(*lead, nbh // 2, 2, nbw // 2, 2, 64)
-        nd = len(lead)
-        z = jnp.moveaxis(jnp.moveaxis(z, nd + 1, 0), nd + 3, 1)
-        return z.reshape(2, 2, -1, 64).reshape(4, -1, 64)
-    if subsampling == "422":
-        z = zy.reshape(*lead, nbh, nbw // 2, 2, 64)
-        return jnp.moveaxis(z, len(lead) + 2, 0).reshape(2, -1, 64)
-    return zy.reshape(1, -1, 64)
-
-
-def _dc_diff_slot_major(d_sm, period_mcu: int):
-    """DC differences for ONE scan-order chain over a slot-major layout
-    [S, M]: within an MCU the chain steps down the slot rows, across MCUs
-    it wraps from the last slot to the next MCU's slot 0 (T.81 F.1.1.5.1
-    per-component predictor). Resets at every period_mcu-th MCU (image
-    starts of a folded batch; 0 = single chain)."""
-    last_prev = jnp.pad(d_sm[-1:, :-1], ((0, 0), (1, 0)))
-    if period_mcu:
-        keep = (jnp.arange(d_sm.shape[1]) % period_mcu) != 0
-        last_prev = last_prev * keep[None, :]
-    prev = jnp.concatenate([last_prev, d_sm[:-1]], axis=0)
-    return d_sm - prev
-
-
-def _y_dc_diff_natural(dc, subsampling: str, seg_mcus: int = 0):
-    """[R, C] raster Y-plane DCs -> scan-order DC differences, still in
-    [R, C] raster layout. seg_mcus > 0 resets the predictor at the first
-    Y slot of every seg_mcus-th MCU (T.81 restart segments): the Y chain
-    is sequential in scan order, so zeroing that single cross-segment
-    link is the complete reset.
-
-    The interleaved scan's predecessor of each Y block is one of a few
-    STATIC neighbors determined by (row, col) parity, so the whole diff
-    is elementwise over shifted copies of the raster array — replacing
-    the raster->scan->diff->raster transpose round trip, whose
-    [nmch, 2, nmcw, 2] intermediates have 2-wide minor dims that the TPU
-    layout pads ~64x (measured 1.2 ms of the 4.0 ms 4:2:0 body).
-
-    4:2:0 (2x2 Y slots/MCU, scan order Y00 Y01 Y10 Y11, T.81 A.2.3):
-      col odd           -> pred = left       dc[r, c-1]
-      col even, row odd -> pred = up-right   dc[r-1, c+1]
-      col even, row even-> pred = down-left  dc[r+1, c-1]
-        (col == 0: wrap to the previous MCU row's last slot
-         dc[r-1, C-1]; the global first block (0, 0) has pred 0)
-    4:2:2 / 4:4:4: Y scan order IS raster order -> pred = left with the
-    same row wrap."""
-    r, c = dc.shape
-    left = jnp.pad(dc[:, :-1], ((0, 0), (1, 0)))
-    # wrap column: dc[r-1, C-1] per row (0 for row 0 == global first)
-    lastcol_up = jnp.pad(dc[:-1, -1], (1, 0))[:, None]
-    cols = jax.lax.broadcasted_iota(jnp.int32, (r, c), 1)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (r, c), 0)
-    if subsampling != "420":
-        pred = jnp.where(cols == 0, lastcol_up, left)
-    else:
-        up_right = jnp.pad(dc[:-1, 1:], ((1, 0), (0, 1)))
-        down_left = jnp.pad(dc[1:, :-1], ((0, 1), (1, 0)))
-        pred = jnp.where(
-            cols % 2 == 1,
-            left,
-            jnp.where(
-                rows % 2 == 1,
-                up_right,
-                jnp.where(cols == 0, lastcol_up, down_left),
-            ),
-        )
-    if seg_mcus:
-        fy = 2 if subsampling == "420" else 1
-        fxw = 1 if subsampling == "444" else 2
-        nmcw = c // fxw
-        m = (rows // fy) * nmcw + cols // fxw
-        first = (cols % fxw == 0) & (rows % fy == 0)
-        pred = jnp.where(first & (m % seg_mcus == 0), 0, pred)
-    return dc - pred
-
-
-def _dc_diff_rows(d, period_mcu: int):
-    """DC differences with an INDEPENDENT chain per row (Cb and Cr are
-    separate components sharing the chroma table), along the MCU axis."""
-    prev = jnp.pad(d[:, :-1], ((0, 0), (1, 0)))
-    if period_mcu:
-        keep = (jnp.arange(d.shape[1]) % period_mcu) != 0
-        prev = prev * keep[None, :]
-    return d - prev
-
-
-def _mcu_streams_fused(y_sm, c_sm, dcd_y, dcd_c, cap: int, interp: bool,
-                       custom_tables=None):
-    """Slot-major component blocks -> one packed stream per MCU, all in
-    Pallas: one fused symbolize+pack launch per Huffman table class in
-    RAW kernel tiling, then merge_streams_pallas folds each MCU's
-    ky + 2 block streams in registers. The only minor-axis relayout in
-    the whole stage is the final [mcu_cap, M] reshape.
-
-    y_sm [ky, M, 64], c_sm [2, M, 64], dcd_* matching; M = MCU count
-    (batch may be folded in). Returns ([mcu_cap, M], [M], overflow)."""
-    from .entropy import pallas_pack
-
-    ky, m = y_sm.shape[:2]
-    step = pallas_pack.BLOCKS_PER_STEP
-    mp = -(-m // step) * step
-    if mp != m:
-        pad = ((0, 0), (0, mp - m), (0, 0))
-        y_sm = jnp.pad(y_sm, pad)
-        c_sm = jnp.pad(c_sm, pad)
-        dcd_y = jnp.pad(dcd_y, ((0, 0), (0, mp - m)))
-        dcd_c = jnp.pad(dcd_c, ((0, 0), (0, mp - m)))
-    g = mp // step
-    ct_y = None if custom_tables is None else custom_tables[0]
-    ct_c = None if custom_tables is None else custom_tables[1]
-    w_y, b_y, ov_y = pallas_pack.encode_blocks_pallas(
-        y_sm.reshape(ky * mp, 64), dcd_y.reshape(-1), cap=cap, table=0,
-        custom_tables=ct_y, interpret=interp, raw=True,
-    )
-    w_c, b_c, ov_c = pallas_pack.encode_blocks_pallas(
-        c_sm.reshape(2 * mp, 64), dcd_c.reshape(-1), cap=cap, table=1,
-        custom_tables=ct_c, interpret=interp, raw=True,
-    )
-    s, l = pallas_pack.SUBLANES, pallas_pack.LANES
-    w_all = jnp.concatenate(
-        [
-            w_y.reshape(ky, g, cap, s, l).transpose(1, 0, 2, 3, 4),
-            w_c.reshape(2, g, cap, s, l).transpose(1, 0, 2, 3, 4),
-        ],
-        axis=1,
-    )
-    b_all = jnp.concatenate(
-        [
-            b_y.reshape(ky, g, s, l).transpose(1, 0, 2, 3),
-            b_c.reshape(2, g, s, l).transpose(1, 0, 2, 3),
-        ],
-        axis=1,
-    )
-    merged, bits = pallas_pack.merge_streams_pallas(w_all, b_all, interpret=interp)
-    mcu_cap = (ky + 2) * cap
-    w_out = merged.transpose(1, 0, 2, 3).reshape(mcu_cap, mp)[:, :m]
-    bits_out = bits.reshape(-1)[:m]
-    return w_out, bits_out, ov_y | ov_c
-
-
 def _color_block_words(zy, zcb, zcr, nbh: int, nbw: int, subsampling: str,
-                       cap: int, custom_tables=None):
-    """Per-MCU packed streams for the interleaved color scan (single
-    image). Returns (words_t [mcu_cap, nmcu], bits [nmcu], overflow)
-    where mcu_cap = cap * slots_per_mcu — MCU streams in scan order,
-    ready for concat_blocks_tree / concat_segments_tree."""
-    return _color_block_words_b(
-        zy[None], zcb[None], zcr[None], nbh, nbw, subsampling, cap,
-        custom_tables=custom_tables,
-    )
+                       cap: int, seg_mcus: int = 0, luts=None):
+    """Per-MCU packed streams of the interleaved color scan:
+    zy [b, ny, 64], zcb/zcr [b, nc, 64] -> (words_t [mcu_cap, b*nmcu],
+    bits [b*nmcu], overflow) with mcu_cap = cap * slots_per_mcu — MCU
+    streams in scan order, ready for concat_blocks_tree /
+    concat_segments_tree. Every image of the batch restarts its DC
+    predictors; seg_mcus > 0 (one image) also resets them every seg_mcus
+    MCUs (restart segments). luts: runtime Huffman tables
+    (tables.stacked_luts), default Annex-K.
 
-
-def _color_block_words_b(zy, zcb, zcr, nbh: int, nbw: int, subsampling: str,
-                         cap: int, custom_tables=None):
-    """Batched per-MCU packed streams: zy [b, ny, 64], zcb/zcr
-    [b, nc, 64] -> (words_t [mcu_cap, b*nmcu], bits [b*nmcu], overflow),
-    per-image DC chains (each image of the fold restarts its predictors).
-
-    Fast path (cap <= 16): slot-major relayout + two fused Pallas encode
-    launches + the register-resident MCU merge kernel — zero gathers,
-    zero XLA merge levels (those measured ~8 ms/12 MPix from strided
-    lane slicing; see pallas_pack.merge_streams_pallas). The worst-case
-    capacity retry (cap > 16) takes the staged XLA pack + merge tree."""
-    from .entropy import treepack
-
+    Each component class packs its blocks with the staged symbolize +
+    block reduction; the MCU interleave is then explicit merge levels —
+    bitstream concat is associative, so y0||y1, y2||y3, ||, ||chroma
+    equals the slot-by-slot emission order."""
+    b, ny = zy.shape[:2]
     nmcu = zcb.shape[1]
-    ny = zy.shape[1]
     zy = zy.astype(jnp.int32)
     zcb = zcb.astype(jnp.int32)
     zcr = zcr.astype(jnp.int32)
     ky = _MODES[subsampling]["ky"]
-    if cap <= 16:
-        y_sm = _y_slot_major(zy, nbh, nbw, subsampling)
-        c_sm = jnp.stack([zcb, zcr]).reshape(2, -1, 64)
-        dcd_y = _dc_diff_slot_major(y_sm[:, :, 0], nmcu)
-        dcd_c = _dc_diff_rows(c_sm[:, :, 0], nmcu)
-        interp = jax.default_backend() == "cpu"
-        return _mcu_streams_fused(y_sm, c_sm, dcd_y, dcd_c, cap, interp,
-                                  custom_tables=custom_tables)
-
-    # Staged fallback: scan-order relayout, XLA symbolize + block
-    # reduction, explicit MCU merge tree levels (bitstream concat is
-    # associative, so y0‖y1, y2‖y3, ‖, ‖chroma equals slot-by-slot).
-    assert custom_tables is None, "runtime tables need the fused path"
-    b = zy.shape[0]
     if subsampling == "420":
         y_scan = (
             zy.reshape(b, nbh // 2, 2, nbw // 2, 2, 64)
@@ -404,20 +216,21 @@ def _color_block_words_b(zy, zcb, zcr, nbh: int, nbw: int, subsampling: str,
     else:  # 422/444: Y scan order IS raster order
         y_scan = zy.reshape(b * ny, 64)
     c_scan = jnp.stack([zcb, zcr], axis=2).reshape(b * 2 * nmcu, 64)
-    dcd_y = entropy_device.dc_differences(y_scan[:, 0], ny)
+    period = seg_mcus or nmcu
+    dcd_y = entropy_device.dc_differences(y_scan[:, 0], ky * period)
     dcd_c = jnp.stack(
         [
             entropy_device.dc_differences(
-                zcb[:, :, 0].reshape(-1), nmcu
-            ).reshape(b, nmcu),
-            entropy_device.dc_differences(
-                zcr[:, :, 0].reshape(-1), nmcu
-            ).reshape(b, nmcu),
+                z[:, :, 0].reshape(-1), period
+            ).reshape(b, nmcu)
+            for z in (zcb, zcr)
         ],
         axis=2,
     ).reshape(-1)
-    w_y, b_y, ov_y = entropy_device._per_block_words(y_scan, 0, dcd_y, cap)
-    w_c, b_c, ov_c = entropy_device._per_block_words(c_scan, 1, dcd_c, cap)
+    w_y, b_y, ov_y = entropy_device._per_block_words(y_scan, 0, dcd_y, cap,
+                                                     luts=luts)
+    w_c, b_c, ov_c = entropy_device._per_block_words(c_scan, 1, dcd_c, cap,
+                                                     luts=luts)
     if ky == 4:  # 4:2:0 — fold the 2x2 Y blocks of each MCU
         w_y, b_y = treepack.merge_adjacent_t(w_y, b_y)  # y01, y23
         w_y, b_y = treepack.merge_adjacent_t(w_y, b_y)  # y0123 [4cap, nmcu]
@@ -428,291 +241,16 @@ def _color_block_words_b(zy, zcb, zcr, nbh: int, nbw: int, subsampling: str,
     return w_all, b_all, ov_y | ov_c
 
 
-@functools.lru_cache(maxsize=64)
-def _encode_color_device(
-    ph: int, pw: int, cfg: EncodeConfig, cap_words_per_block: int,
-    stuff: bool = True,
-):
-    """Jitted full color encode: padded RGB -> (bytes, nbytes, overflowed)
-    via the gather-free fused path (color_encode_body). stuff=False
-    returns (words, total_bits, overflow) for the host-native stuffer
-    instead of stuffed bytes. (ph, pw) key the jit cache."""
-
-    @jax.jit
-    def fn(img):
-        return color_encode_body(img, cfg, cap_words_per_block, stuff)
-
-    return fn
-
-
-def _slot_planes(yplane, subsampling: str):
-    """Y plane [PH, PW] -> [ky, mh, mw] slot planes: plane s is the s-th
-    Y block of every MCU assembled as one contiguous image, so each slot
-    runs the SAME grid-natural transform kernel as the chroma planes
-    (lanes = MCU columns) and the per-MCU merge needs no interleave
-    gather. A pixel-domain relayout of uint8 with 8-lane granules — far
-    cheaper than permuting the 64-wide coefficient tensors."""
-    h, w = yplane.shape
-    if subsampling == "420":
-        x = yplane.reshape(h // 16, 2, 8, w // 16, 2, 8)
-        x = x.transpose(1, 4, 0, 2, 3, 5)
-        return x.reshape(4, h // 2, w // 2)
-    if subsampling == "422":
-        x = yplane.reshape(h // 8, 8, w // 16, 2, 8)
-        x = x.transpose(3, 0, 1, 2, 4)
-        return x.reshape(2, h, w // 2)
-    return yplane[None]
-
-
-def _fused_raw_planes(img, cfg: EncodeConfig):
-    """Planar RGB [3, PH, PW] -> (raw_y, raw_c, geom): the FUSED
-    convert+subsample+transform kernels (pt.transform_rgb_y_raw /
-    transform_rgb_chroma_raw) — the YCbCr planes never touch HBM.
-
-    RGB is zero-padded to exactly (fy*kh, fx*kw) so the Y grid is an
-    fy x fx refinement of the chroma grid (what the merge kernel's
-    BlockSpecs assume). Pad blocks come out as zero levels with dcd
-    forced 0 downstream -> ~6-bit EOB-only streams, excluded from the
-    output by the raster slicing; geom = (kh, kw, ncg, nmch, nmcw)."""
-    from .ops import pallas_transform as pt
-
-    fy = 2 if cfg.subsampling == "420" else 1
-    fx = 1 if cfg.subsampling == "444" else 2
-    _, yh, yw = img.shape
-    mh, mw = yh // fy, yw // fx
-    kh, kw = pt.padded_dims_kernel(mh, mw)
-    if (fy * kh, fx * kw) != (yh, yw):
-        img = jnp.pad(
-            img, ((0, 0), (0, fy * kh - yh), (0, fx * kw - yw))
-        )
-    interp = jax.default_backend() == "cpu"
-    int_mode = cfg.dct_dtype == "int32"
-    qdt = np.int32 if int_mode else np.float32
-    qtl = jnp.asarray(cfg.luma_quant.astype(qdt))
-    qtc = jnp.asarray(cfg.chroma_quant.astype(qdt))
-    raw_y = pt.transform_rgb_y_raw(img, qtl, cfg.bitexact,
-                                   interpret=interp, int_mode=int_mode)
-    raw_c = pt.transform_rgb_chroma_raw(
-        img, qtc, cfg.subsampling, cfg.bitexact, interpret=interp,
-        int_mode=int_mode,
-    )
-    return raw_y, raw_c, (kh, kw, kw // pt.TILE_W, mh // 8, mw // 8)
-
-
-def _color_merged_raw(img, cfg: EncodeConfig, cap: int, seg_mcus: int = 0,
-                      custom_tables=None):
-    """Shared all-Pallas color front half: planar RGB -> per-MCU merged
-    packed streams in the CHROMA grid-natural layout. seg_mcus > 0
-    resets every DC chain at each seg_mcus-th MCU (restart segments).
-    Returns (merged [Gc, mcap, 8, 128] u32, mbits [Gc, 8, 128] i32,
-    overflow, (ncg, nmch, nmcw))."""
-    from .entropy import pallas_pack
-    from .ops import pallas_transform as pt
-
-    fy = 2 if cfg.subsampling == "420" else 1
-    fx = 1 if cfg.subsampling == "444" else 2
-    interp = jax.default_backend() == "cpu"
-    raw_y, raw_c, (kh, kw, ncg, nmch, nmcw) = _fused_raw_planes(img, cfg)
-    g = raw_c.shape[0] // 2
-
-    # DC chains: Y follows the interleaved scan order (MCU raster, fy x fx
-    # slots within each MCU). Computed in NATURAL raster layout with
-    # parity-masked shifts (_y_dc_diff_natural) — the obvious
-    # raster->scan->diff->raster transpose round trip has [., 2]-minor
-    # dims that XLA pads ~64x (measured: 1.2 ms of the 4.0 ms 4:2:0
-    # body at 12 MPix, the single largest line item after the packs).
-    nbh_y, nbw_y = fy * nmch, fx * nmcw
-    dc_y = pt.raw_to_scan(raw_y[:, :1], nbh_y, nbw_y, fx * ncg)[0]
-    dcd_nat = _y_dc_diff_natural(
-        dc_y.reshape(nbh_y, nbw_y), cfg.subsampling, seg_mcus
-    ).reshape(-1)
-    dcd_y_raw = pt.scan_to_raw(dcd_nat, nbh_y, nbw_y, fx * ncg)
-    raw_c5 = raw_c.reshape(2, g, 64, pt.SUBLANES, pt.LANES)
-    dc_c = jnp.stack(
-        [
-            pt.raw_to_scan(raw_c5[i, :, :1], nmch, nmcw, ncg)[0]
-            for i in range(2)
-        ]
-    )
-    dcd_c = _dc_diff_rows(dc_c, seg_mcus)
-    dcd_c_raw = jnp.stack(
-        [pt.scan_to_raw(dcd_c[i], nmch, nmcw, ncg) for i in range(2)]
-    ).reshape(2 * g, pt.SUBLANES, pt.LANES)
-    ct_y = None if custom_tables is None else custom_tables[0]
-    ct_c = None if custom_tables is None else custom_tables[1]
-    w_y, b_y, _ = pallas_pack.encode_blocks_pallas(
-        raw_y, dcd_y_raw, cap=cap, table=0, custom_tables=ct_y,
-        interpret=interp, raw=True
-    )
-    w_c, b_c, _ = pallas_pack.encode_blocks_pallas(
-        raw_c, dcd_c_raw, cap=cap, table=1, custom_tables=ct_c,
-        interpret=interp, raw=True
-    )
-    # Pad-lane blocks are zero pixels with dcd forced 0 -> tiny streams,
-    # so the raw bits are safe for the overflow check without masking.
-    overflow = jnp.any(b_y > cap * 32) | jnp.any(b_c > cap * 32)
-    merged, mbits = pallas_pack.merge_mcu_natural_pallas(
-        w_y, b_y,
-        w_c.reshape(2, g, cap, pt.SUBLANES, pt.LANES),
-        b_c.reshape(2, g, pt.SUBLANES, pt.LANES),
-        nrg_c=kh // pt.TILE_H, ncg_c=ncg,
-        subsampling=cfg.subsampling, interpret=interp,
-    )
-    return merged, mbits, overflow, (ncg, nmch, nmcw)
-
-
-def _color_encode_body_raw(img, cfg: EncodeConfig, cap: int, stuff: bool,
-                           custom_tables=None):
-    """All-Pallas color body, NATURAL layouts end to end: the full-res
-    planar RGB goes straight through the FUSED convert+subsample+
-    transform kernels (_fused_raw_planes), the pre-tiled fused
-    symbolize+pack, and the natural-layout MCU interleave merge (static
-    lane-realign matmuls in pallas_pack.merge_mcu_natural_pallas) — no
-    intermediate YCbCr planes in HBM, no slot-plane pixel relayout, no
-    XLA stack/transpose staging. The only XLA data movement left is the
-    per-block DC scan-order round trip (tiny [nb] arrays)."""
-    from .entropy import pallas_concat, treepack
-    from .ops import pallas_transform as pt
-
-    interp = jax.default_backend() == "cpu"
-    merged, mbits, overflow, (ncg, nmch, nmcw) = _color_merged_raw(
-        img, cfg, cap, custom_tables=custom_tables
-    )
-    mcap = merged.shape[1]
-    mode = pallas_concat.concat_mode(nmch, nmcw, mcap, ncg)
-    if mode == "pallas-resident":
-        words, total_bits = pallas_concat.concat_raw_pallas(
-            merged, mbits, nmch, nmcw, ncg, interpret=interp
-        )
-    elif mode == "pallas-chunked":
-        # 8K+ frames: chunked streaming concat (see pipeline gray twin)
-        words, total_bits = pallas_concat.concat_raw_chunked(
-            merged, mbits, nmch, nmcw, ncg,
-            pallas_concat.chunk_plan(mcap, ncg), interpret=interp,
-        )
-    else:
-        w_t = pt.raw_to_scan(merged, nmch, nmcw, ncg)
-        bits = pt.raw_to_scan(mbits[:, None], nmch, nmcw, ncg)[0]
-        words, total_bits = treepack.concat_blocks_tree(w_t, bits)
-    words, total_bits = treepack._apply_tail_padding(
-        words, total_bits, cfg.pad_ones
-    )
-    if not stuff:
-        return words, total_bits, overflow
-    out, nbytes = entropy_device.stuff_bytes_device(words, total_bits)
-    return out, nbytes, overflow
-
-
-def _color_restart_body_raw(img, cfg: EncodeConfig, cap: int,
-                            seg_mcus: int, spc: int, custom_tables=None):
-    """All-Pallas restart-interval color body: the raw chain of
-    _color_encode_body_raw with per-segment DC resets, the per-MCU
-    merged streams stitched into ONE contiguous device buffer of
-    byte-aligned restart segments (pallas_concat.stitch_segments_pallas;
-    an MCU plays the 'block' role with capacity mcap = slots * cap).
-    Returns (chunks, seg_totals, chunk_totals, overflow) — the host
-    finishes exactly like the grayscale stitched path
-    (pipeline.fetch_stitched + scan_from_stitched)."""
-    from .entropy import pallas_concat
-    from .ops import pallas_transform as pt
-
-    interp = jax.default_backend() == "cpu"
-    merged, mbits, overflow, (ncg, nmch, nmcw) = _color_merged_raw(
-        img, cfg, cap, seg_mcus=seg_mcus, custom_tables=custom_tables
-    )
-    mcap = merged.shape[1]
-    w_t = pt.raw_to_scan(merged, nmch, nmcw, ncg)  # [mcap, nmcu]
-    bits = pt.raw_to_scan(mbits[:, None], nmch, nmcw, ncg)[0]
-    nmcu = nmch * nmcw
-    n_seg = -(-nmcu // seg_mcus)
-    n_total = n_seg * seg_mcus
-    if n_total != nmcu:
-        w_t = jnp.pad(w_t, ((0, 0), (0, n_total - nmcu)))
-        bits = jnp.pad(bits, (0, n_total - nmcu))
-    seg128 = -(-seg_mcus // pallas_concat.LANES) * pallas_concat.LANES
-    if seg128 != seg_mcus:
-        w_t = jnp.pad(
-            w_t.reshape(mcap, n_seg, seg_mcus),
-            ((0, 0), (0, 0), (0, seg128 - seg_mcus)),
-        ).reshape(mcap, n_seg * seg128)
-        bits = jnp.pad(
-            bits.reshape(n_seg, seg_mcus),
-            ((0, 0), (0, seg128 - seg_mcus)),
-        ).reshape(-1)
-    chunks, seg_tot, chunk_tot = pallas_concat.stitch_segments_pallas(
-        w_t, bits, seg128, spc, pad_ones=cfg.pad_ones, interpret=interp
-    )
-    return chunks, seg_tot, chunk_tot, overflow
-
-
-def color_stitch_geometry(ph: int, pw: int, cfg: EncodeConfig,
-                          seg_mcus: int, cap: int):
-    """Static stitch plan for a segmented color scan:
-    (n_seg, segs_per_chunk); 0 segs_per_chunk -> infeasible."""
-    from .entropy import pallas_concat
-
-    mh, mw = mcu_dims(cfg.subsampling)
-    nmcu = (ph // mh) * (pw // mw)
-    mcap = slots_per_mcu(cfg.subsampling) * cap
-    n_seg = -(-nmcu // seg_mcus)
-    seg128 = -(-seg_mcus // pallas_concat.LANES) * pallas_concat.LANES
-    return n_seg, pallas_concat.stitch_plan(n_seg, seg128, mcap)
-
-
-@functools.lru_cache(maxsize=32)
-def _encode_color_restart_stitched(
-    ph: int, pw: int, cfg: EncodeConfig, cap_words_per_block: int,
-    spc: int, rt: bool = False,
-):
-    """Jitted stitched restart color encode (raw Pallas chain end to
-    end); rt=True threads runtime Huffman tables (2-pass pass 2)."""
-    seg_mcus = cfg.restart_interval
-
-    if rt:
-        @jax.jit
-        def fn(img, tabs_l, tabs_c):
-            return _color_restart_body_raw(
-                img, cfg, cap_words_per_block, seg_mcus, spc,
-                custom_tables=(tabs_l, tabs_c),
-            )
-    else:
-        @jax.jit
-        def fn(img):
-            return _color_restart_body_raw(
-                img, cfg, cap_words_per_block, seg_mcus, spc
-            )
-
-    return fn
-
-
 def color_encode_body(img, cfg: EncodeConfig, cap_words_per_block: int,
-                      stuff: bool, custom_tables=None):
-    """Traceable full color encode body (gather-free fused path; compose
-    under jit freely). img: padded PLANAR RGB [3, PH, PW].
-    custom_tables: optional ([192] i32 luma, [192] i32 chroma) runtime
-    Huffman tables (pallas_pack.pack_runtime_tables)."""
-    from .entropy import treepack
-
-    if cap_words_per_block <= 16:
-        return _color_encode_body_raw(
-            img, cfg, cap_words_per_block, stuff,
-            custom_tables=custom_tables,
-        )
-    assert custom_tables is None, "runtime tables need the raw path"
+                      stuff: bool, luts=None):
+    """Traceable full color encode body (compose under jit freely).
+    img: padded PLANAR RGB [3, PH, PW]. luts: runtime Huffman tables
+    (tables.stacked_luts), default Annex-K."""
     ph, pw = img.shape[1:]
-    nbh, nbw = ph // 8, pw // 8
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    # Per-component transforms feed the relayout-based block pack directly
-    # (no interleave gather); _per_block_words inside falls back to the
-    # staged pack for the worst-case capacity retry.
-    zy, zcb, zcr = _component_levels(
-        img, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-        jnp.asarray(qtc_np),
-    )
+    zy, zcb, zcr = _component_levels(img, cfg)
     w_all, b_all, overflow = _color_block_words(
-        zy, zcb, zcr, nbh, nbw, cfg.subsampling, cap_words_per_block
+        zy[None], zcb[None], zcr[None], ph // 8, pw // 8, cfg.subsampling,
+        cap_words_per_block, luts=luts,
     )
     words, total_bits = treepack.concat_blocks_tree(w_all, b_all)
     words, total_bits = treepack._apply_tail_padding(
@@ -724,56 +262,79 @@ def color_encode_body(img, cfg: EncodeConfig, cap_words_per_block: int,
     return out, nbytes, overflow
 
 
+def color_segments_body(img, cfg: EncodeConfig, cap_words_per_block: int,
+                        seg_mcus: int, luts=None):
+    """Traceable segmented color encode: the scan's MCUs split into
+    restart segments of seg_mcus MCUs (T.81 DRI), each an independent
+    byte-aligned stream (the last one may be short). Returns (streams
+    [n_seg, seg_mcus * mcu_cap] u32, total_bits [n_seg] i32, overflow)."""
+    ph, pw = img.shape[1:]
+    zy, zcb, zcr = _component_levels(img, cfg)
+    w_all, b_all, overflow = _color_block_words(
+        zy[None], zcb[None], zcr[None], ph // 8, pw // 8, cfg.subsampling,
+        cap_words_per_block, seg_mcus=seg_mcus, luts=luts,
+    )
+    mcap, nmcu = w_all.shape
+    n_total = -(-nmcu // seg_mcus) * seg_mcus
+    if n_total != nmcu:  # ragged last segment: zero-bit pad MCUs
+        w_all = jnp.pad(w_all, ((0, 0), (0, n_total - nmcu)))
+        b_all = jnp.pad(b_all, (0, n_total - nmcu))
+    return entropy_device.segment_streams(
+        w_all, b_all, seg_mcus, seg_mcus * mcap, cfg.pad_ones, overflow
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _encode_color_device(
+    ph: int, pw: int, cfg: EncodeConfig, cap_words_per_block: int,
+    stuff: bool = True,
+):
+    """Jitted full color encode fn(img, luts): padded planar RGB ->
+    (bytes, nbytes, overflowed); stuff=False returns (words, total_bits,
+    overflow) for the host-native stuffer instead. (ph, pw) key the jit
+    cache."""
+
+    @jax.jit
+    def fn(img, luts):
+        return color_encode_body(img, cfg, cap_words_per_block, stuff,
+                                 luts=luts)
+
+    return fn
+
+
 @functools.lru_cache(maxsize=32)
 def _encode_color_restart_device(
     ph: int, pw: int, cfg: EncodeConfig, cap_words_per_block: int,
 ):
-    """Jitted restart-interval color encode: the scan's MCUs split into
-    segments of restart_interval MCUs (T.81 DRI), each packed as an
-    independent byte-aligned stream — all in one program via
-    entropy.encode_segments_device."""
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    gather_idx, table_sel, comp_id = _scan_layout(ph, pw, cfg.subsampling)
-    nslots = gather_idx.shape[0]
-    seg_slots = cfg.restart_interval * slots_per_mcu(cfg.subsampling)
-    n_seg = -(-nslots // seg_slots)
-    n_total = n_seg * seg_slots
-    table_pad = np.pad(table_sel, (0, n_total - nslots))
-    comp_pad = np.pad(comp_id, (0, n_total - nslots))
+    """Jitted restart-interval color encode fn(img, luts) ->
+    (streams, total_bits, overflow), one stream per restart segment."""
 
     @jax.jit
-    def fn(img):
-        zz = _color_levels(
-            img, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-            jnp.asarray(qtc_np),
-        ).astype(jnp.int32)
-        if n_total != nslots:
-            zz = jnp.pad(zz, ((0, n_total - nslots), (0, 0)))
-        dcd = _per_component_dc_diff(zz[:, 0], comp_pad, seg_slots)
-        return entropy_device.encode_segments_device(
-            zz, seg_slots, nslots, table_pad, dcd, cap_words_per_block,
-            pad_ones=cfg.pad_ones,
-        )
+    def fn(img, luts):
+        return color_segments_body(img, cfg, cap_words_per_block,
+                                   cfg.restart_interval, luts=luts)
 
     return fn
 
 
 @functools.lru_cache(maxsize=64)
 def _levels_fn(ph: int, pw: int, cfg: EncodeConfig):
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
+    return jax.jit(lambda img: _color_levels(img, cfg))
 
-    @jax.jit
-    def fn(img):
-        return _color_levels(
-            img, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-            jnp.asarray(qtc_np),
-        )
 
-    return fn
+def _planar(image: np.ndarray):
+    return jnp.asarray(np.ascontiguousarray(np.moveaxis(image, -1, 0)))
+
+
+def _pad_color(image: np.ndarray, subsampling: str) -> np.ndarray:
+    """Gray -> 3 channels, then edge-pad on the host to whole MCUs."""
+    if image.ndim == 2:
+        image = np.repeat(image[..., None], 3, axis=-1)
+    h, w = image.shape[:2]
+    ph, pw = padded_dims_color(h, w, subsampling)
+    if (ph, pw) != (h, w):
+        image = np.pad(image, [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
+    return image
 
 
 def color_coefficients(image: np.ndarray, config: EncodeConfig):
@@ -781,413 +342,121 @@ def color_coefficients(image: np.ndarray, config: EncodeConfig):
 
     Returns (zz [nslots, 64] int32, table_sel, comp_id).
     """
-    h, w = image.shape[:2]
-    ph, pw = padded_dims_color(h, w, config.subsampling)
-    if (ph, pw) != (h, w):
-        image = np.pad(image, [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
-    fn = _levels_fn(ph, pw, config)
-    zz = fn(jnp.asarray(np.ascontiguousarray(np.moveaxis(image, -1, 0))))
+    image = _pad_color(image, config.subsampling)
+    ph, pw = image.shape[:2]
+    zz = _levels_fn(ph, pw, config)(_planar(image))
     _, table_sel, comp_id = _scan_layout(ph, pw, config.subsampling)
     return np.asarray(zz), table_sel, comp_id
 
 
-def _component_levels_raw(img, cfg: EncodeConfig):
-    """Per-component raster-order levels (zy [ny,64], zcb, zcr [nc,64])
-    computed by the SAME Pallas transform calls _color_encode_body_raw
-    makes (same subsample, same zero-padding to kernel tiles). Pass 1 of
-    2-pass optimal coding must histogram exactly the levels pass 2
-    encodes — XLA/Pallas float tie-splits would otherwise leave a pass-2
-    symbol with no code (a silently corrupt stream)."""
-    from .ops import pallas_transform as pt
-
-    fy = 2 if cfg.subsampling == "420" else 1
-    fx = 1 if cfg.subsampling == "444" else 2
-    raw_y, raw_c, (kh, kw, ncg, nmch, nmcw) = _fused_raw_planes(img, cfg)
-    g = raw_c.shape[0] // 2
-    raw_c5 = raw_c.reshape(2, g, 64, pt.SUBLANES, pt.LANES)
-    zy = pt.raw_to_scan(raw_y, fy * nmch, fx * nmcw, fx * ncg).T
-    zcb = pt.raw_to_scan(raw_c5[0], nmch, nmcw, ncg).T
-    zcr = pt.raw_to_scan(raw_c5[1], nmch, nmcw, ncg).T
-    return zy, zcb, zcr
+def _color_stats_local(img, cfg: EncodeConfig, seg_mcus: int):
+    """Pass 1 of device 2-pass optimal color coding (traceable): planar
+    RGB -> per-class symbol count tensors of the interleaved scan, with
+    per-component DC chains reset every seg_mcus MCUs (0 = never)."""
+    ph, pw = img.shape[1:]
+    _gidx, table_sel, comp_id = _scan_layout(ph, pw, cfg.subsampling)
+    zz = _color_levels(img, cfg).astype(jnp.int32)
+    dcd = _per_component_dc_diff(
+        zz[:, 0], comp_id, seg_mcus * slots_per_mcu(cfg.subsampling)
+    )
+    return entropy_device.symbol_histograms(
+        zz, table_sel=jnp.asarray(table_sel), dc_diff=dcd
+    )
 
 
 @functools.lru_cache(maxsize=16)
 def _color_stats_fn(ph: int, pw: int, cfg: EncodeConfig):
-    """Jitted pass 1 of device 2-pass optimal color coding: planar RGB ->
-    per-class symbol count tensors (entropy_device.symbol_histograms,
-    with the interleaved scan's static table selectors and per-component
-    DC chains) — levels from the raw Pallas transforms, byte-identical
-    to what pass 2 encodes."""
-    _gidx, table_sel, comp_id = _scan_layout(ph, pw, cfg.subsampling)
-
-    @jax.jit
-    def fn(img):
-        zy, zcb, zcr = _component_levels_raw(img, cfg)
-        allz = jnp.concatenate([zy, zcb, zcr], axis=0).astype(jnp.int32)
-        zz = allz[jnp.asarray(_gidx)]
-        dcd = _per_component_dc_diff(zz[:, 0], comp_id)
-        return entropy_device.symbol_histograms(
-            zz, table_sel=jnp.asarray(table_sel), dc_diff=dcd
-        )
-
-    return fn
+    """Jitted pass 1 of device 2-pass optimal color coding."""
+    return jax.jit(
+        lambda img: _color_stats_local(img, cfg, cfg.restart_interval)
+    )
 
 
-@functools.lru_cache(maxsize=16)
-def _encode_color_device_rt(ph: int, pw: int, cfg: EncodeConfig,
-                            cap_words_per_block: int, stuff: bool):
-    """Jitted full device color encode with RUNTIME Huffman tables."""
+def encode_color(image: np.ndarray, config: EncodeConfig | None = None) -> bytes:
+    """RGB uint8 [H, W, 3] -> baseline JFIF YCbCr stream (420/422/444).
 
-    @jax.jit
-    def fn(img, tabs_lum, tabs_chrom):
-        return color_encode_body(
-            img, cfg, cap_words_per_block, stuff,
-            custom_tables=(tabs_lum, tabs_chrom),
-        )
-
-    return fn
-
-
-def _encode_color_optimized_device(
-    image: np.ndarray, config: EncodeConfig, w: int, h: int
-) -> bytes:
-    """Device-speed 2-pass optimal color encode (see
-    pipeline._encode_grayscale_optimized_device)."""
-    from . import pipeline, tables
-    from .entropy import pallas_pack
-
+    Same contract as pipeline.encode_grayscale: one device program per
+    shape encodes transform + entropy; optimize_huffman adds a histogram
+    pass; entropy="host" runs the numpy reference coder."""
+    config = config or EncodeConfig(subsampling="420")
+    h, w = image.shape[:2]
+    image = _pad_color(image, config.subsampling)
+    if config.entropy == "host":
+        return _encode_color_host(image, config, w, h)
     ph, pw = image.shape[:2]
-    img_dev = jnp.asarray(np.ascontiguousarray(np.moveaxis(image, -1, 0)))
-    stats = jax.device_get(_color_stats_fn(ph, pw, config)(img_dev))
-    # FLOORED frequencies — uniform across all optimize_huffman paths
-    # (see pipeline._encode_grayscale_optimized_device).
-    freqs = tables.floor_frequencies(
-        entropy_device.assemble_histograms(stats)
-    )
-    specs = tables.optimal_specs_from_frequencies(freqs)
-    luts = tables.huffman_luts_from_specs(specs)
-    tabs = tuple(
-        jnp.asarray(
-            pallas_pack.pack_runtime_tables(
-                luts[f"dc_{kind}"][0], luts[f"dc_{kind}"][1],
-                luts[f"ac_{kind}"][0], luts[f"ac_{kind}"][1],
-            )
-        )
-        for kind in ("lum", "chrom")
-    )
+    img_dev = _planar(image)
+    specs, luts = None, entropy_device.standard_luts()
+    if config.optimize_huffman:
+        stats = jax.device_get(_color_stats_fn(ph, pw, config)(img_dev))
+        specs, luts = pipeline.optimal_tables(stats, COLOR_CLASSES)
+    if config.restart_interval:
+        segments = _encode_color_restart(img_dev, config, luts)
+    else:
+        segments = [_encode_color_segment(img_dev, config, luts)]
+    return jfif.assemble(w, h, config, segments, huffman_specs=specs)
+
+
+def _encode_color_segment(img_dev, config: EncodeConfig, luts) -> bytes:
+    """Single-segment device color encode with capacity-overflow retry."""
+    ph, pw = img_dev.shape[1:]
     host_stuff = config.stuff == "host" and pipeline._native_available()
-    key = (ph, pw, config, "color-opt")
+    key = (ph, pw, config, "color")
     for cap in pipeline.capacity_ladder(config, key):
-        if cap > 16:
-            break
-        fn = _encode_color_device_rt(ph, pw, config, cap, not host_stuff)
-        out, count, overflowed = fn(img_dev, *tabs)
+        fn = _encode_color_device(ph, pw, config, cap, stuff=not host_stuff)
+        out, count, overflowed = fn(img_dev, luts)
         if host_stuff:
             from . import native
 
             words, total_bits = pipeline.fetch_stream_words(
-                out, count, overflowed, spec_key=(ph, pw, config, "opt")
+                out, count, overflowed, spec_key=key
             )
             if words is not None:
                 pipeline.record_cap(key, cap)
-                seg = native.words_to_stuffed(words, total_bits)
-                return jfif.assemble(w, h, config, [seg],
-                                     huffman_specs=specs)
+                return native.words_to_stuffed(words, total_bits)
         elif not bool(overflowed):
             pipeline.record_cap(key, cap)
-            seg = pipeline.fetch_prefix(out, count).tobytes()
-            return jfif.assemble(w, h, config, [seg], huffman_specs=specs)
-    # Pathological content past the raw-path capacity: host 2-pass. The
-    # host coder encodes XLA-path levels, so its tables must come from
-    # THOSE levels (the device histograms above describe the Pallas
-    # levels — a tie-split would leave a symbol with no code).
-    zz, table_sel, comp_id = color_coefficients(
-        np.moveaxis(np.asarray(jax.device_get(img_dev)), 0, -1), config
-    )
-    tsel = table_sel.astype(np.int64)
-    freqs = tables.floor_frequencies(
-        entropy_host.symbol_frequencies(zz, table_sel=tsel, comp_id=comp_id)
-    )
-    specs = tables.optimal_specs_from_frequencies(freqs)
-    segments = entropy_host.encode_scan(
-        zz, table_sel=tsel, comp_id=comp_id,
-        pad_ones=config.pad_ones,
-        luts=tables.huffman_luts_from_specs(specs),
-    )
-    return jfif.assemble(w, h, config, segments, huffman_specs=specs)
+            return pipeline.fetch_prefix(out, count).tobytes()
+    raise AssertionError("worst-case entropy capacity overflowed (bug)")
 
 
-@functools.lru_cache(maxsize=16)
-def _color_restart_stats_fn(ph: int, pw: int, cfg: EncodeConfig,
-                            raw: bool = False):
-    """Pass 1 of device 2-pass optimal color coding WITH restart
-    intervals: histograms with per-component DC chains reset at each
-    restart segment (the same chains pass 2 packs); pad slots beyond
-    the last real MCU are masked out. raw=True histograms the raw
-    Pallas-transform levels — mandatory when pass 2 rides the stitched
-    raw chain (see pipeline._gray_levels_raw_scan rationale)."""
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    _gidx, table_sel, comp_id = _scan_layout(ph, pw, cfg.subsampling)
-    nslots = table_sel.shape[0]
-    seg_slots = cfg.restart_interval * slots_per_mcu(cfg.subsampling)
-    n_total = -(-nslots // seg_slots) * seg_slots
-    table_pad = np.pad(table_sel, (0, n_total - nslots))
-    comp_pad = np.pad(comp_id, (0, n_total - nslots))
-
-    @jax.jit
-    def fn(img):
-        if raw:
-            zy, zcb, zcr = _component_levels_raw(img, cfg)
-            allz = jnp.concatenate([zy, zcb, zcr], axis=0).astype(jnp.int32)
-            zz = allz[jnp.asarray(_gidx)]
-        else:
-            zz = _color_levels(
-                img, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-                jnp.asarray(qtc_np),
-            ).astype(jnp.int32)
-        if n_total != nslots:
-            zz = jnp.pad(zz, ((0, n_total - nslots), (0, 0)))
-        dcd = _per_component_dc_diff(zz[:, 0], comp_pad, seg_slots)
-        valid = jnp.arange(n_total) < nslots
-        return entropy_device.symbol_histograms(
-            zz, table_sel=jnp.asarray(table_pad), dc_diff=dcd, valid=valid
-        )
-
-    return fn
-
-
-@functools.lru_cache(maxsize=16)
-def _encode_color_restart_device_rt(
-    ph: int, pw: int, cfg: EncodeConfig, cap_words_per_block: int,
-):
-    """_encode_color_restart_device with RUNTIME Huffman tables — pass 2
-    of restart-interval color 2-pass optimal coding."""
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    gather_idx, table_sel, comp_id = _scan_layout(ph, pw, cfg.subsampling)
-    nslots = gather_idx.shape[0]
-    seg_slots = cfg.restart_interval * slots_per_mcu(cfg.subsampling)
-    n_seg = -(-nslots // seg_slots)
-    n_total = n_seg * seg_slots
-    table_pad = np.pad(table_sel, (0, n_total - nslots))
-    comp_pad = np.pad(comp_id, (0, n_total - nslots))
-
-    @jax.jit
-    def fn(img, tabs_l, tabs_c):
-        zz = _color_levels(
-            img, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-            jnp.asarray(qtc_np),
-        ).astype(jnp.int32)
-        if n_total != nslots:
-            zz = jnp.pad(zz, ((0, n_total - nslots), (0, 0)))
-        dcd = _per_component_dc_diff(zz[:, 0], comp_pad, seg_slots)
-        return entropy_device.encode_segments_device(
-            zz, seg_slots, nslots, table_pad, dcd, cap_words_per_block,
-            pad_ones=cfg.pad_ones, custom_tables=(tabs_l, tabs_c),
-        )
-
-    return fn
-
-
-def _encode_color_optimized_restart_device(
-    image: np.ndarray, config: EncodeConfig, w: int, h: int
-) -> bytes:
-    """Device-speed 2-pass optimal color encode honoring
-    restart_interval (see pipeline._encode_grayscale_optimized_restart_
-    device); falls back to the host 2-pass past the fused-path
-    capacity."""
-    from . import pipeline, tables
-    from .entropy import pallas_pack
-
-    ph, pw = image.shape[:2]
-    img_dev = jnp.asarray(np.ascontiguousarray(np.moveaxis(image, -1, 0)))
-    seg_mcus = config.restart_interval
-    use_raw = all(
-        color_stitch_geometry(ph, pw, config, seg_mcus, c)[1] > 0
-        for c in (8, 16)
-    )
-    stats = jax.device_get(
-        _color_restart_stats_fn(ph, pw, config, raw=use_raw)(img_dev)
-    )
-    freqs = tables.floor_frequencies(
-        entropy_device.assemble_histograms(stats)
-    )
-    specs = tables.optimal_specs_from_frequencies(freqs)
-    luts = tables.huffman_luts_from_specs(specs)
-    tabs = tuple(
-        jnp.asarray(
-            pallas_pack.pack_runtime_tables(
-                luts[f"dc_{kind}"][0], luts[f"dc_{kind}"][1],
-                luts[f"ac_{kind}"][0], luts[f"ac_{kind}"][1],
-            )
-        )
-        for kind in ("lum", "chrom")
-    )
-    key = (ph, pw, config, "color-restart-opt")
+def _encode_color_restart(img_dev, config: EncodeConfig, luts) -> list[bytes]:
+    """Restart-interval device color encode: per-segment byte strings."""
+    ph, pw = img_dev.shape[1:]
+    key = (ph, pw, config, "color-restart")
     for cap in pipeline.capacity_ladder(config, key):
-        if cap > 16:
-            break  # runtime tables ride the fused path only
-        if use_raw:
-            spc = color_stitch_geometry(ph, pw, config, seg_mcus, cap)[1]
-            fn = _encode_color_restart_stitched(
-                ph, pw, config, cap, spc, rt=True
-            )
-            chunks, seg_tot, chunk_tot, overflow = fn(img_dev, *tabs)
-            words, seg_np = pipeline.fetch_stitched(
-                chunks, seg_tot, chunk_tot, overflow, spec_key=key
-            )
-            if words is not None:
-                pipeline.record_cap(key, cap)
-                scan = pipeline.scan_from_stitched(words, seg_np, spc)
-                return jfif.assemble(w, h, config, [scan],
-                                     huffman_specs=specs)
-            continue
-        fn = _encode_color_restart_device_rt(ph, pw, config, cap)
-        streams, totals, overflow = fn(img_dev, *tabs)
+        fn = _encode_color_restart_device(ph, pw, config, cap)
+        streams, totals, overflow = fn(img_dev, luts)
         if not bool(overflow):
             pipeline.record_cap(key, cap)
             streams, totals = jax.device_get((streams, totals))
-            segments = pipeline.segments_from_streams(streams, totals)
-            return jfif.assemble(w, h, config, segments,
-                                 huffman_specs=specs)
-    # Pathological content: host 2-pass with restart segments (tables
-    # rebuilt from the host coder's own XLA-path levels).
-    zz, table_sel, comp_id = color_coefficients(
-        np.moveaxis(np.asarray(jax.device_get(img_dev)), 0, -1), config
-    )
-    mcu_of_slot = np.arange(zz.shape[0]) // slots_per_mcu(config.subsampling)
-    segment_ids = mcu_of_slot // config.restart_interval
-    tsel = table_sel.astype(np.int64)
-    freqs = tables.floor_frequencies(entropy_host.symbol_frequencies(
-        zz, table_sel=tsel, comp_id=comp_id, segment_ids=segment_ids
-    ))
-    specs = tables.optimal_specs_from_frequencies(freqs)
-    segments = entropy_host.encode_scan(
-        zz, table_sel=tsel, comp_id=comp_id, segment_ids=segment_ids,
-        pad_ones=config.pad_ones,
-        luts=tables.huffman_luts_from_specs(specs),
-    )
-    return jfif.assemble(w, h, config, segments, huffman_specs=specs)
+            return pipeline.segments_from_streams(streams, totals)
+    raise AssertionError("worst-case entropy capacity overflowed (bug)")
 
 
-def encode_color(image: np.ndarray, config: EncodeConfig | None = None) -> bytes:
-    """RGB uint8 [H, W, 3] -> baseline JFIF YCbCr stream (420 or 444)."""
-    config = config or EncodeConfig(subsampling="420")
-    h, w = image.shape[:2]
-    if image.ndim == 2:
-        image = np.repeat(image[..., None], 3, axis=-1)
-    ph, pw = padded_dims_color(h, w, config.subsampling)
-    if (ph, pw) != (h, w):
-        image = np.pad(image, [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
-
-    if config.optimize_huffman:
-        if config.entropy == "device":
-            if not config.restart_interval:
-                return _encode_color_optimized_device(image, config, w, h)
-            return _encode_color_optimized_restart_device(
-                image, config, w, h
-            )
-        # host 2-pass (entropy="host"). FLOORED frequencies — every
-        # optimize_huffman path floors (tables.floor_frequencies), so
-        # host and device 2-pass outputs stay byte-comparable.
-        from . import tables
-
-        zz, table_sel, comp_id = color_coefficients(image, config)
-        segment_ids = None
-        if config.restart_interval:
-            mcu_of_slot = (
-                np.arange(zz.shape[0]) // slots_per_mcu(config.subsampling)
-            )
-            segment_ids = mcu_of_slot // config.restart_interval
-        tsel = table_sel.astype(np.int64)
-        freqs = tables.floor_frequencies(entropy_host.symbol_frequencies(
-            zz, table_sel=tsel, comp_id=comp_id, segment_ids=segment_ids
-        ))
-        specs = tables.optimal_specs_from_frequencies(freqs)
-        segments = entropy_host.encode_scan(
-            zz, table_sel=tsel, comp_id=comp_id, segment_ids=segment_ids,
-            pad_ones=config.pad_ones,
-            luts=tables.huffman_luts_from_specs(specs),
-        )
-        return jfif.assemble(w, h, config, segments, huffman_specs=specs)
-
-    if config.entropy == "device" and not config.restart_interval:
-        from . import pipeline
-
-        img_dev = jnp.asarray(np.ascontiguousarray(np.moveaxis(image, -1, 0)))
-        host_stuff = config.stuff == "host" and pipeline._native_available()
-        key = (ph, pw, config, "color")
-        for cap in pipeline.capacity_ladder(config, key):
-            fn = _encode_color_device(ph, pw, config, cap, stuff=not host_stuff)
-            out, count, overflowed = fn(img_dev)
-            if host_stuff:
-                from . import native
-
-                words, total_bits = pipeline.fetch_stream_words(
-                    out, count, overflowed, spec_key=(ph, pw, config)
-                )
-                if words is not None:
-                    pipeline.record_cap(key, cap)
-                    seg = native.words_to_stuffed(words, total_bits)
-                    return jfif.assemble(w, h, config, [seg])
-            elif not bool(overflowed):
-                pipeline.record_cap(key, cap)
-                seg = pipeline.fetch_prefix(out, count).tobytes()
-                return jfif.assemble(w, h, config, [seg])
-        raise AssertionError("worst-case entropy capacity overflowed (bug)")
-
-    if config.entropy == "device":
-        # restart_interval on one chip: the stitched raw chain emits ONE
-        # contiguous device buffer of byte-aligned segments (same
-        # machinery as the grayscale stitched path); per-segment buffers
-        # remain the worst-case-capacity fallback.
-        from . import pipeline
-
-        img_dev = jnp.asarray(np.ascontiguousarray(np.moveaxis(image, -1, 0)))
-        key = (ph, pw, config, "color-restart")
-        seg_mcus = config.restart_interval
-        for cap in pipeline.capacity_ladder(config, key):
-            spc = (
-                color_stitch_geometry(ph, pw, config, seg_mcus, cap)[1]
-                if cap <= 16 else 0
-            )
-            if spc:
-                fn = _encode_color_restart_stitched(ph, pw, config, cap, spc)
-                chunks, seg_tot, chunk_tot, overflow = fn(img_dev)
-                words, seg_np = pipeline.fetch_stitched(
-                    chunks, seg_tot, chunk_tot, overflow, spec_key=key
-                )
-                if words is not None:
-                    pipeline.record_cap(key, cap)
-                    scan = pipeline.scan_from_stitched(words, seg_np, spc)
-                    return jfif.assemble(w, h, config, [scan])
-                continue
-            fn = _encode_color_restart_device(ph, pw, config, cap)
-            streams, totals, overflow = fn(img_dev)
-            if not bool(overflow):
-                pipeline.record_cap(key, cap)
-                streams, totals = jax.device_get((streams, totals))
-                segments = pipeline.segments_from_streams(streams, totals)
-                return jfif.assemble(w, h, config, segments)
-        raise AssertionError("worst-case entropy capacity overflowed (bug)")
-
+def _encode_color_host(image: np.ndarray, config: EncodeConfig,
+                       w: int, h: int) -> bytes:
+    """entropy="host": device coefficients, numpy entropy coder (the
+    reference coder the device paths are tested against). image is
+    already MCU-padded."""
     zz, table_sel, comp_id = color_coefficients(image, config)
     segment_ids = None
     if config.restart_interval:
         # restart interval counts MCUs; map each block slot to its MCU
         mcu_of_slot = np.arange(zz.shape[0]) // slots_per_mcu(config.subsampling)
         segment_ids = mcu_of_slot // config.restart_interval
+    tsel = table_sel.astype(np.int64)
+    specs = luts = None
+    if config.optimize_huffman:
+        freqs = tables.floor_frequencies(entropy_host.symbol_frequencies(
+            zz, table_sel=tsel, comp_id=comp_id, segment_ids=segment_ids
+        ))
+        specs = tables.optimal_specs_from_frequencies(freqs)
+        luts = tables.huffman_luts_from_specs(specs)
     segments = entropy_host.encode_scan(
-        zz,
-        table_sel=table_sel.astype(np.int64),
-        comp_id=comp_id,
-        segment_ids=segment_ids,
-        pad_ones=config.pad_ones,
+        zz, table_sel=tsel, comp_id=comp_id, segment_ids=segment_ids,
+        pad_ones=config.pad_ones, luts=luts,
     )
-    return jfif.assemble(w, h, config, segments)
+    return jfif.assemble(w, h, config, segments, huffman_specs=specs)
 
 
 def encode_color_sharded(
@@ -1196,11 +465,11 @@ def encode_color_sharded(
     mesh=None,
     orig_shape: tuple[int, int] | None = None,
 ) -> bytes:
-    """Multi-chip color encode: MCU-row shards, shard == restart segment.
+    """Multi-device color encode: MCU-row shards, shard == restart segment.
 
     Same contract as parallel.sharding.encode_grayscale_sharded but for
-    the interleaved YCbCr scan: each chip transforms its horizontal band
-    (16 pixel rows per MCU row for 4:2:0, 8 for 4:4:4), runs its own
+    the interleaved YCbCr scan: each device transforms its horizontal
+    band (16 pixel rows per MCU row for 4:2:0, 8 for 4:4:4), runs its own
     per-component DC chains (reset at the restart boundary), and packs an
     independent byte-aligned segment; the host stitches
     seg_0 || RST_0 || seg_1 || ... with DRI = MCUs per shard.
@@ -1208,9 +477,14 @@ def encode_color_sharded(
     orig_shape: the pre-padding (height, width) for the JFIF header when
     `image` was already padded by the caller (pre-placed device inputs);
     without it the header would carry the padded dims."""
-    import jax as _jax
+    from jax.sharding import PartitionSpec as P
 
-    from .parallel.sharding import make_mesh
+    from .parallel.sharding import (
+        gather_segments_multihost,
+        global_input,
+        make_mesh,
+        restart_subsegments,
+    )
 
     config = config or EncodeConfig(subsampling="420")
     mesh = mesh or make_mesh()
@@ -1218,8 +492,8 @@ def encode_color_sharded(
     if image.ndim == 2:
         image = np.repeat(image[..., None], 3, axis=-1)
     h, w = orig_shape if orig_shape is not None else image.shape[:2]
-    mcu_rows = mcu_dims(config.subsampling)[0]
-    band = mcu_rows * n
+    mcu_h, mcu_w = mcu_dims(config.subsampling)
+    band = mcu_h * n
     ih, iw = image.shape[:2]
     ph = -(-h // band) * band
     pw = padded_dims_color(h, w, config.subsampling)[1]
@@ -1227,151 +501,57 @@ def encode_color_sharded(
         image = np.pad(
             image, [(0, ph - ih), (0, pw - iw), (0, 0)], mode="edge"
         )
-
-    from . import pipeline as _pipeline
-    from .parallel.sharding import (
-        gather_segments_multihost,
-        global_input,
-        restart_subsegments,
-    )
-    from jax.sharding import PartitionSpec as P
-
     img_global = global_input(
         np.ascontiguousarray(np.moveaxis(image, -1, 0)),
         mesh,
         P(None, "shard", None),  # planar [3, H, W], bands along H
     )
+    seg_mcus = restart_subsegments(ph // n // mcu_h, pw // mcu_w)
 
-    use_stitched = _jax.process_count() == 1 and all(
-        sharded_color_stitch_plan(ph, pw, config, n, c)[1] > 0
-        for c in (8, 16)
-    )
-
-    specs = None
+    specs, luts = None, entropy_device.standard_luts()
     if config.optimize_huffman:
         # Sharded color 2-pass: psum'd per-shard histograms -> every
         # host package-merges identical tables -> runtime-table pass 2.
-        # Frequencies FLOORED (tables.floor_frequencies): the two passes
-        # are separate XLA programs whose f32 levels may split rounding
-        # ties, and a flipped tie must never select a code-less symbol.
-        # Pass 1 histograms the levels of whichever transform pass 2
-        # runs (raw Pallas on the stitched path, staged XLA otherwise).
-        from . import tables
-        from .entropy import pallas_pack
+        stats = jax.device_get(
+            _sharded_color_stats_fn(mesh, ph, pw, config)(img_global)
+        )
+        specs, luts = pipeline.optimal_tables(stats, COLOR_CLASSES)
 
-        stats = _jax.device_get(
-            _sharded_color_stats_fn(mesh, ph, pw, config,
-                                    raw=use_stitched)(img_global)
-        )
-        freqs = tables.floor_frequencies(
-            entropy_device.assemble_histograms(stats)
-        )
-        specs = tables.optimal_specs_from_frequencies(freqs)
-        luts = tables.huffman_luts_from_specs(specs)
-        tabs = tuple(
-            jnp.asarray(
-                pallas_pack.pack_runtime_tables(
-                    luts[f"dc_{kind}"][0], luts[f"dc_{kind}"][1],
-                    luts[f"ac_{kind}"][0], luts[f"ac_{kind}"][1],
-                )
-            )
-            for kind in ("lum", "chrom")
-        )
-
-    mcu_w = mcu_dims(config.subsampling)[1]
     restart_cfg = EncodeConfig(
         quality=config.quality,
         subsampling=config.subsampling,
-        restart_interval=restart_subsegments(ph // n // mcu_rows, pw // mcu_w),
+        restart_interval=seg_mcus,
         pad_ones=config.pad_ones,
         bitexact=config.bitexact,
     )
-
-    for cap in _pipeline.capacity_ladder(config):
-        if specs is not None and cap > 16:
-            # Runtime tables ride the fused path only; pathological
-            # content degrades to the standard-table sharded encode
-            # instead of failing (see sharding.encode_grayscale_sharded).
-            specs = None
-        if use_stitched and cap <= 16:
-            from .parallel.sharding import fetch_stitched_shards
-
-            k, spc = sharded_color_stitch_plan(ph, pw, config, n, cap)
-            fn = _sharded_color_stitched_fn(
-                mesh, ph, pw, config, cap, rt=specs is not None
-            )
-            out = fn(img_global, *tabs) if specs is not None else fn(img_global)
-            streams_s, seg_tot, chunk_tot, overflow = out
-            words, seg_np = fetch_stitched_shards(
-                streams_s, seg_tot, chunk_tot, overflow,
-                spec_key=(ph, pw, config, n, "color-sharded",
-                          specs is not None),
-            )
-            if words is not None:
-                scan = b"".join(
-                    _pipeline.scan_from_stitched(
-                        words[i], seg_np[i], spc,
-                        rst_phase=(i * k) & 7, trailing=i < n - 1,
-                    )
-                    for i in range(n)
-                )
-                return jfif.assemble(w, h, restart_cfg, [scan],
-                                     huffman_specs=specs)
-            continue
-        if specs is not None:
-            fn = _sharded_color_fn(mesh, ph, pw, config, cap, rt=True)
-            streams, totals, overflow = fn(img_global, *tabs)
-        else:
-            fn = _sharded_color_fn(mesh, ph, pw, config, cap)
-            streams, totals, overflow = fn(img_global)
+    for cap in pipeline.capacity_ladder(config):
+        fn = _sharded_color_fn(mesh, ph, pw, config, cap)
+        streams, totals, overflow = fn(img_global, luts)
         if not bool(overflow):
             break
     else:
         raise AssertionError("worst-case entropy capacity overflowed (bug)")
 
-    totals_np = _jax.device_get(totals)
-    segments = gather_segments_multihost(streams, totals_np)
+    segments = gather_segments_multihost(streams, jax.device_get(totals))
     return jfif.assemble(w, h, restart_cfg, segments, huffman_specs=specs)
 
 
 @functools.lru_cache(maxsize=16)
-def _sharded_color_stats_fn(mesh, ph: int, pw: int, cfg: EncodeConfig,
-                            raw: bool = False):
+def _sharded_color_stats_fn(mesh, ph: int, pw: int, cfg: EncodeConfig):
     """Pass 1 of SHARDED color 2-pass optimal coding: per-shard symbol
     histograms of the interleaved scan (same levels + per-component
     segment-reset DC chains the sharded encode packs), psum'd so every
-    host builds the same tables. raw=True histograms the raw Pallas
-    levels (mandatory with the stitched pass 2)."""
+    host builds the same tables."""
     from jax.sharding import PartitionSpec as P
 
     from .parallel.sharding import restart_subsegments
 
     n = mesh.devices.size
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    ph_local = ph // n
-    _gidx, table_sel, comp_id = _scan_layout(ph_local, pw, cfg.subsampling)
-    spm = slots_per_mcu(cfg.subsampling)
     mh, mw = mcu_dims(cfg.subsampling)
-    seg_slots = restart_subsegments(ph_local // mh, pw // mw) * spm
+    seg_mcus = restart_subsegments(ph // n // mh, pw // mw)
 
     def local_stats(img_local):
-        if raw:
-            zy, zcb, zcr = _component_levels_raw(img_local, cfg)
-            allz = jnp.concatenate(
-                [zy, zcb, zcr], axis=0
-            ).astype(jnp.int32)
-            zz = allz[jnp.asarray(_gidx)]
-        else:
-            zz = _color_levels(
-                img_local, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-                jnp.asarray(qtc_np),
-            ).astype(jnp.int32)
-        dcd = _per_component_dc_diff(zz[:, 0], comp_id, seg_slots)
-        st = entropy_device.symbol_histograms(
-            zz, table_sel=jnp.asarray(table_sel), dc_diff=dcd
-        )
+        st = _color_stats_local(img_local, cfg, seg_mcus)
         return jax.tree.map(lambda x: jax.lax.psum(x, "shard"), st)
 
     sharded = jax.shard_map(
@@ -1381,168 +561,39 @@ def _sharded_color_stats_fn(mesh, ph: int, pw: int, cfg: EncodeConfig,
     return jax.jit(sharded)
 
 
-def sharded_color_stitch_plan(ph: int, pw: int, cfg: EncodeConfig,
-                              n: int, cap: int):
-    """(k restart segments per shard, segs_per_chunk) for the stitched
-    sharded color path; segs_per_chunk == 0 -> infeasible."""
-    from .parallel.sharding import restart_subsegments
-
-    mh, mw = mcu_dims(cfg.subsampling)
-    ph_local = ph // n
-    nmcu_local = (ph_local // mh) * (pw // mw)
-    seg_mcus = restart_subsegments(ph_local // mh, pw // mw)
-    k = nmcu_local // seg_mcus
-    if k == 1:
-        return 1, 1
-    return k, color_stitch_geometry(ph_local, pw, cfg, seg_mcus, cap)[1]
-
-
-@functools.lru_cache(maxsize=32)
-def _sharded_color_stitched_fn(mesh, ph: int, pw: int, cfg: EncodeConfig,
-                               cap_words_per_block: int, rt: bool = False):
-    """Stitched sharded color encode: every shard runs the flagship
-    all-Pallas raw color chain (fused convert+transform, fused pack,
-    natural-layout MCU merge) and emits ONE byte-aligned stream buffer —
-    the color twin of sharding._sharded_encode_stitched_fn."""
-    from jax.sharding import PartitionSpec as P
-
-    from .parallel.sharding import restart_subsegments
-
-    n = mesh.devices.size
-    mh, mw = mcu_dims(cfg.subsampling)
-    ph_local = ph // n
-    seg_mcus = restart_subsegments(ph_local // mh, pw // mw)
-    k = (ph_local // mh) * (pw // mw) // seg_mcus
-    spc = (
-        1 if k == 1
-        else color_stitch_geometry(ph_local, pw, cfg, seg_mcus,
-                                   cap_words_per_block)[1]
-    )
-    assert spc > 0, "caller must gate on sharded_color_stitch_plan"
-
-    def local_encode(img_local, *tabs):
-        ct = (tabs[0], tabs[1]) if rt else None
-        if k == 1:
-            words, total, overflow = _color_encode_body_raw(
-                img_local, cfg, cap_words_per_block, False,
-                custom_tables=ct,
-            )
-            chunks = words[None]
-            seg_tot = total[None].astype(jnp.int32)
-            chunk_tot = seg_tot
-        else:
-            chunks, seg_tot, chunk_tot, overflow = _color_restart_body_raw(
-                img_local, cfg, cap_words_per_block, seg_mcus, spc,
-                custom_tables=ct,
-            )
-        all_seg = jax.lax.all_gather(seg_tot, "shard")
-        all_chunk = jax.lax.all_gather(chunk_tot, "shard")
-        return chunks[None], all_seg, all_chunk, overflow[None]
-
-    in_specs = (
-        (P(None, "shard", None), P(), P()) if rt
-        else (P(None, "shard", None),)
-    )
-    sharded = jax.shard_map(
-        local_encode,
-        mesh=mesh,
-        in_specs=in_specs,
-        out_specs=(P("shard", None, None), P(None, None),
-                   P(None, None), P("shard")),
-        check_vma=False,
-    )
-
-    def fn(img, *tabs):
-        streams, seg_tot, chunk_tot, overflow = sharded(img, *tabs)
-        return streams, seg_tot, chunk_tot, jnp.any(overflow)
-
-    return jax.jit(fn)
-
-
 @functools.lru_cache(maxsize=32)
 def _sharded_color_fn(mesh, ph: int, pw: int, cfg: EncodeConfig,
-                      cap_words_per_block: int, rt: bool = False):
-    """Sharded color encode step: each shard packs k byte-aligned restart
-    sub-segments (k > 1 only past DRI's 16-bit MCU limit); segment
-    lengths are all_gathered so every host can assemble. Mirrors
-    parallel.sharding._sharded_encode_fn for the interleaved scan."""
+                      cap_words_per_block: int):
+    """Sharded color encode step fn(img, luts): each shard packs k
+    byte-aligned restart sub-segments (k > 1 only past DRI's 16-bit MCU
+    limit); segment lengths are all_gathered so every host can assemble.
+    Mirrors parallel.sharding._sharded_encode_fn for the interleaved
+    scan."""
     from jax.sharding import PartitionSpec as P
 
     from .parallel.sharding import restart_subsegments
 
     n = mesh.devices.size
-    basis_np = cfg.dct_basis()
-    qtl_np = cfg.luma_quant.astype(np.float32)
-    qtc_np = cfg.chroma_quant.astype(np.float32)
-    ph_local = ph // n
-    gather_idx, table_sel, comp_id = _scan_layout(ph_local, pw, cfg.subsampling)
-    nslots = gather_idx.shape[0]
-    spm = slots_per_mcu(cfg.subsampling)
     mh, mw = mcu_dims(cfg.subsampling)
-    seg_slots = restart_subsegments(ph_local // mh, pw // mw) * spm
+    seg_mcus = restart_subsegments(ph // n // mh, pw // mw)
 
-    def local_encode(img_local, custom_tables=None):
-        from .entropy import treepack
-
-        if seg_slots == nslots:
-            # one restart segment per shard: the gather-free fused pack
-            zy, zcb, zcr = _component_levels(
-                img_local, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-                jnp.asarray(qtc_np),
-            )
-            w_all, b_all, overflow = _color_block_words(
-                zy, zcb, zcr, ph_local // 8, pw // 8, cfg.subsampling,
-                cap_words_per_block, custom_tables=custom_tables,
-            )
-            streams, totals = treepack.concat_segments_tree(
-                w_all[:, None], b_all[None],
-                out_words_per_seg=nslots * cap_words_per_block,
-            )
-            streams, totals = treepack.apply_tail_padding_segments(
-                streams, totals, cfg.pad_ones
-            )
-        else:
-            zz = _color_levels(
-                img_local, cfg, jnp.asarray(basis_np), jnp.asarray(qtl_np),
-                jnp.asarray(qtc_np),
-            ).astype(jnp.int32)
-            dc_diff = _per_component_dc_diff(zz[:, 0], comp_id, seg_slots)
-            streams, totals, overflow = entropy_device.encode_segments_device(
-                zz, seg_slots, nslots, table_sel, dc_diff,
-                cap_words_per_block, pad_ones=cfg.pad_ones,
-                custom_tables=custom_tables,
-            )
+    def local_encode(img_local, luts):
+        streams, totals, overflow = color_segments_body(
+            img_local, cfg, cap_words_per_block, seg_mcus, luts=luts
+        )
         all_totals = jax.lax.all_gather(totals, "shard")  # [n, k]
         return streams[None], all_totals, overflow[None]
 
-    if rt:
-        def local_encode_rt(img_local, tabs_l, tabs_c):
-            return local_encode(img_local, custom_tables=(tabs_l, tabs_c))
-
-        sharded_rt = jax.shard_map(
-            local_encode_rt,
-            mesh=mesh,
-            in_specs=(P(None, "shard", None), P(), P()),
-            out_specs=(P("shard", None, None), P(None, None), P("shard")),
-            check_vma=False,
-        )
-
-        def fn_rt(img, tabs_l, tabs_c):
-            streams, all_totals, overflow = sharded_rt(img, tabs_l, tabs_c)
-            return streams, all_totals, jnp.any(overflow)
-
-        return jax.jit(fn_rt)
-
     sharded = jax.shard_map(
         local_encode,
         mesh=mesh,
-        in_specs=P(None, "shard", None),  # planar [3, H, W]
+        in_specs=(P(None, "shard", None), P()),  # planar [3, H, W]
         out_specs=(P("shard", None, None), P(None, None), P("shard")),
         check_vma=False,
     )
 
-    def fn(img):
-        streams, all_totals, overflow = sharded(img)
+    def fn(img, luts):
+        streams, all_totals, overflow = sharded(img, luts)
         return streams, all_totals, jnp.any(overflow)
 
     return jax.jit(fn)

@@ -31,7 +31,7 @@ class EncodeConfig:
         quantized coefficients bit-match natural_c (tables.dct_basis_reference);
         otherwise use the true orthonormal basis.
       dct_dtype: accumulation dtype for the DCT matmuls.
-      entropy: "device" runs RLE+Huffman+bit packing on TPU (entropy.device)
+      entropy: "device" runs RLE+Huffman+bit packing on the device (entropy.device)
         so only compressed bytes cross the host boundary; "host" uses the
         vectorized numpy coder (entropy.host).
       optimize_huffman: 2-pass optimal Huffman tables (the libjpeg
@@ -39,9 +39,9 @@ class EncodeConfig:
         Annex-K tables forgo): pass 1 gathers per-class symbol
         histograms, package-merge builds length-limited optimal specs,
         and the scan + DHT segments use them. With entropy="device" both
-        passes run on device (on-device histograms, runtime tables in
-        the fused kernel — two dispatches, ~2 KB host traffic); restart
-        intervals, int32 mode and entropy="host" take the host coder.
+        passes run on device (on-device histograms, then the same encode
+        program with the tables as runtime data — two dispatches, ~2 KB
+        host traffic); entropy="host" runs both passes on the host.
       capacity_words_per_block: static per-block output capacity (uint32
         words) for the device packer. The default (8 words = 4 bpp) covers
         photographic content with wide margin; overflow is detected and the

@@ -2,7 +2,7 @@
 
 The reference's entropy tail is serial scalar code (natural_c rle.c:51-131,
 huffman.c:121-192; DSP rle.c:50-199, huffman.c:190-260 — a 64-bit
-accumulator BitWriter). On TPU both stages are reformulated as dense,
+accumulator BitWriter). Here both stages are reformulated as dense,
 fixed-shape tensor ops so the whole encode — pixels to stuffed entropy
 bytes — runs on device and only the final compressed bytes cross the host
 boundary (SURVEY.md §7.1 step 3).
@@ -16,16 +16,18 @@ Design:
     slots have length 0 and contribute nothing, so no compaction /
     ragged shapes are ever materialized (SURVEY.md §7.4 #4).
   * Bit packing (default `packer="tree"`): the sub-slots fuse
-    elementwise into 3-word elements, a Pallas kernel packs each block's
-    64 elements (entropy.pallas_pack), and the per-block streams merge
-    in a log-depth shift-or reduction (entropy.treepack). Stuffing runs
-    on-device (prefix-sum + scatter) or, by default, on the host via the
-    native C++ runtime (caller passes stuff=False).
+    elementwise into 3-word elements, each block's 64 elements reduce in
+    a log-depth shift-or tree, and the per-block streams merge the same
+    way (entropy.treepack). Stuffing runs on-device (prefix-sum +
+    scatter) or, by default, on the host via the native C++ runtime
+    (caller passes stuff=False).
   * `packer="scatter"` keeps the direct formulation — exclusive cumsum
     of slot bit lengths, then a scatter-add of each slot's one-or-two
-    word contributions (bit-disjoint, so add == or). Simpler, slower
-    (TPU scatters retire ~1 element / ~35 cycles); retained as the
+    word contributions (bit-disjoint, so add == or); retained as the
     cross-check implementation.
+  * Huffman tables are DATA (`luts`, tables.stacked_luts), so one
+    compiled program serves the Annex-K tables and every 2-pass optimal
+    table set.
 
 Everything is shape-static under jit; the only dynamic quantity is the
 returned byte count.
@@ -57,66 +59,25 @@ MAX_WORDS_PER_BLOCK = (MAX_BITS_PER_BLOCK + 31) // 32  # = 53
 
 
 @functools.lru_cache(maxsize=None)
-def _host_luts():
-    """Huffman (codes, lengths) LUTs stacked [table, symbol] as NUMPY.
+def standard_luts():
+    """Annex-K tables in the stacked device form (tables.stacked_luts).
 
-    table 0 = luminance, 1 = chrominance. Kept numpy (not jnp) so the
-    lru_cache never captures trace-time values — each trace embeds its own
-    constant (jax UnexpectedTracerError otherwise).
-    """
-    luts = tables.huffman_luts()
-    dc_codes = np.stack([luts["dc_lum"][0][:16], luts["dc_chrom"][0][:16]])
-    dc_lens = np.stack([luts["dc_lum"][1][:16], luts["dc_chrom"][1][:16]])
-    ac_codes = np.stack([luts["ac_lum"][0], luts["ac_chrom"][0]])
-    ac_lens = np.stack([luts["ac_lum"][1], luts["ac_chrom"][1]])
-    return (
-        dc_codes.astype(np.uint32),
-        dc_lens.astype(np.int32),
-        ac_codes.astype(np.uint32),
-        ac_lens.astype(np.int32),
-    )
+    Kept numpy (not jnp) so the lru_cache never captures trace-time
+    values — each trace embeds its own constant (jax
+    UnexpectedTracerError otherwise)."""
+    return tables.stacked_luts()
 
 
-def _device_luts():
-    return tuple(jnp.asarray(a) for a in _host_luts())
-
-
-@functools.lru_cache(maxsize=None)
-def _combined_ac_table():
-    """AC (code, length) packed as (code << 5) | length, shaped [2, 16, 16]
-    float32 for the one-hot bilinear lookup (codes are <= 16 bits, so the
-    packed value <= 2^21 — exact in f32). Indexed [table, run, size]."""
-    _, _, ac_codes, ac_lens = _host_luts()
-    packed = (ac_codes.astype(np.int64) << 5) | ac_lens.astype(np.int64)
-    return packed.reshape(2, 16, 16).astype(np.float32)
-
-
-def _ac_lookup(sym: jnp.ndarray, tsel):
-    """Huffman (code, length) for AC symbol bytes WITHOUT a gather.
-
-    A [2,256]-table gather costs ~13 ns/element on TPU (~160 ms for a
-    12 MPix image); decomposing the symbol byte into (run, size) nibbles
-    and contracting two 16-wide one-hots against the [16,16] table runs
-    5x faster on the MXU/VPU. sym: [nb, 63] int32.
+def _ac_lookup(sym: jnp.ndarray, tsel, ac_codes, ac_lens):
+    """Huffman (code, length) for AC symbol bytes: a gather from the
+    [2, 256] tables. (A one-hot (run, size) contraction against the
+    tables measured 7-10x slower on an NVIDIA H100.)
+    sym: [nb, 63] int32; tsel: static int or [nb] table selector.
     Returns (codes u32, lens i32).
     """
-    tables3 = jnp.asarray(_combined_ac_table())
-    hi = jax.nn.one_hot(sym >> 4, 16, dtype=jnp.float32)  # [nb, 63, 16]
-    lo = jax.nn.one_hot(sym & 15, 16, dtype=jnp.float32)
-
-    def look(tbl):
-        return jnp.einsum(
-            "bki,ij,bkj->bk", hi, tbl, lo, precision=jax.lax.Precision.HIGHEST
-        )
-
     if isinstance(tsel, int):
-        packed = look(tables3[tsel])
-    else:
-        p0 = look(tables3[0])
-        p1 = look(tables3[1])
-        packed = jnp.where((tsel > 0)[:, None], p1, p0)
-    packed = packed.astype(jnp.int32)
-    return (packed >> 5).astype(jnp.uint32), packed & 31
+        return ac_codes[tsel][sym], ac_lens[tsel][sym]
+    return ac_codes[tsel[:, None], sym], ac_lens[tsel[:, None], sym]
 
 
 def magnitude_category(v: jnp.ndarray) -> jnp.ndarray:
@@ -151,15 +112,20 @@ def _lane_codes(
     table_sel: jnp.ndarray | int = 0,
     dc_diff: jnp.ndarray | None = None,
     seg_len: int = 0,
+    luts=None,
 ):
     """Shared per-lane code assignment (RLE + Huffman, rle.c:84-123).
 
+    luts: the 4 stacked table arrays (tables.stacked_luts; traced or
+    constant), default the Annex-K tables.
     Returns dict of per-block / per-AC-lane (value, length) pieces:
     dc [nb], zrl_a/zrl_b/ac [nb, 63], eob [nb].
     """
     zz = zz.astype(jnp.int32)
     nb = zz.shape[0]
-    dc_codes, dc_lens, ac_codes, ac_lens = _device_luts()
+    dc_codes, dc_lens, ac_codes, ac_lens = (
+        jnp.asarray(a) for a in (standard_luts() if luts is None else luts)
+    )
     tsel = jnp.broadcast_to(jnp.asarray(table_sel, jnp.int32), (nb,))
 
     # --- DC ---
@@ -188,7 +154,8 @@ def _lane_codes(
     sym = jnp.where(nz, (rem << 4) | ac_size, 0)
     ac_amp = amplitude_code(ac, ac_size)
     ach, achl = _ac_lookup(
-        sym, table_sel if isinstance(table_sel, int) else tsel
+        sym, table_sel if isinstance(table_sel, int) else tsel,
+        ac_codes, ac_lens,
     )
     achl = jnp.where(nz, achl, 0)
     ac_val = (ach << ac_size.astype(jnp.uint32)) | ac_amp
@@ -225,6 +192,7 @@ def symbolize_slots(
     table_sel: jnp.ndarray | int = 0,
     dc_diff: jnp.ndarray | None = None,
     seg_len: int = 0,
+    luts=None,
 ):
     """[nb, 64] zigzag levels -> per-slot (values u32, lengths i32) of shape
     [nb, 65, 3], in exact reference emission order (rle.c:84-123).
@@ -235,7 +203,7 @@ def symbolize_slots(
     block. dc_diff overrides the internally computed running difference
     (used by interleaved color scans where the chain runs per component).
     """
-    c = _lane_codes(zz, table_sel, dc_diff, seg_len)
+    c = _lane_codes(zz, table_sel, dc_diff, seg_len, luts)
     nb = c["nb"]
     values = jnp.zeros((nb, 65, 3), jnp.uint32)
     lengths = jnp.zeros((nb, 65, 3), jnp.int32)
@@ -257,6 +225,7 @@ def symbolize_elements64(
     table_sel: jnp.ndarray | int = 0,
     dc_diff: jnp.ndarray | None = None,
     seg_len: int = 0,
+    luts=None,
 ):
     """Power-of-two element layout for the tree packer: 64 elements per
     block, element e (0..62) = AC lane e+1 carrying sub-slots
@@ -267,7 +236,7 @@ def symbolize_elements64(
     Returns (values [nb, 64, 5] u32, lengths [nb, 64, 5] i32). Max element
     bits: 20 + 22 + 11 + 26 + 4 = 83 (3 words).
     """
-    c = _lane_codes(zz, table_sel, dc_diff, seg_len)
+    c = _lane_codes(zz, table_sel, dc_diff, seg_len, luts)
     nb = c["nb"]
     values = jnp.zeros((nb, 64, 5), jnp.uint32)
     lengths = jnp.zeros((nb, 64, 5), jnp.int32)
@@ -342,75 +311,17 @@ def stuff_bytes_device(words: jnp.ndarray, total_bits: jnp.ndarray):
     return out, nbytes + jnp.sum(is_ff)
 
 
-def _fused_grouped_pack(zz, table_sel_np, dc_diff, cap_per_block: int,
-                        interpret: bool, custom_tables=None):
-    """Multi-table fused symbolize+pack: one Pallas launch per Huffman
-    table class over the (static) slot group using it, then a static
-    gather merges the per-block word frames back to scan order.
-
-    The reference serves interleaved color scans with one serial entropy
-    tail switching tables per component (dsp huffman.c:190-260); here the
-    table choice is static per scan slot, so grouping by table keeps each
-    kernel's select cascades single-table (half the in-kernel op count of
-    a per-lane table select) at the cost of one extra [cap, nslots] static
-    gather — free under XLA.
-
-    zz: [nslots, 64] scan-order levels; table_sel_np: STATIC numpy [nslots]
-    of 0/1; dc_diff: [nslots] precomputed per-component DC differences.
-    Returns (words_t [cap, nslots], bits [nslots], overflow).
-    """
-    from . import pallas_pack
-
-    nslots = zz.shape[0]
-    perms = [np.nonzero(table_sel_np == t)[0] for t in (0, 1)]
-    inv = np.empty(nslots, np.int64)
-    inv[perms[0]] = np.arange(len(perms[0]))
-    inv[perms[1]] = len(perms[0]) + np.arange(len(perms[1]))
-    words_parts, bits_parts = [], []
-    overflow = jnp.zeros((), bool)
-    for t, idx in enumerate(perms):
-        if len(idx) == 0:
-            continue
-        ct = None if custom_tables is None else custom_tables[t]
-        w, b, ov = pallas_pack.encode_blocks_pallas(
-            zz[idx], dc_diff[idx], cap=cap_per_block, table=t,
-            custom_tables=ct, interpret=interpret,
-        )
-        words_parts.append(w)
-        bits_parts.append(b)
-        overflow = overflow | ov
-    w_all = jnp.concatenate(words_parts, axis=1)[:, inv]
-    b_all = jnp.concatenate(bits_parts)[inv]
-    return w_all, b_all, overflow
-
-
 def _per_block_words(zz, table_sel, dc_diff, cap_per_block: int,
-                     fused: bool = True, custom_tables=None):
+                     luts=None):
     """Per-block packed streams: [nslots, 64] levels (+ per-block DC
-    diffs) -> (words_t [cap, nslots], bits [nslots], overflow). Chooses
-    the fused Pallas kernel (single- or multi-table) when eligible, else
-    the staged XLA symbolize + block reduction.
-
-    custom_tables: optional tuple of runtime Huffman blobs indexed by
-    table class (pallas_pack.pack_runtime_tables) — fused path only."""
+    diffs) -> (words_t [cap, nslots], bits [nslots], overflow), via the
+    staged symbolize + block shift-or reduction. table_sel: static int
+    or (numpy or traced) per-slot 0/1 selectors; luts as _lane_codes."""
     from . import treepack
 
     zz = zz.astype(jnp.int32)
-    interp = jax.default_backend() == "cpu"
-    if fused and cap_per_block <= 16:
-        if isinstance(table_sel, np.ndarray):
-            return _fused_grouped_pack(zz, table_sel, dc_diff,
-                                       cap_per_block, interp,
-                                       custom_tables=custom_tables)
-        from . import pallas_pack
-
-        ct = None if custom_tables is None else custom_tables[table_sel]
-        return pallas_pack.encode_blocks_pallas(
-            zz, dc_diff, cap=cap_per_block, table=table_sel,
-            custom_tables=ct, interpret=interp,
-        )
-    assert custom_tables is None, "runtime tables need the fused path"
-    values, lengths = symbolize_elements64(zz, table_sel, dc_diff)
+    values, lengths = symbolize_elements64(zz, table_sel, dc_diff,
+                                           luts=luts)
     words_t, bits_t = treepack._fuse_subslots(values, lengths, 3)
     return treepack._block_reduce(
         words_t, bits_t, 64, 3, cap_per_block, zz.shape[0]
@@ -426,11 +337,10 @@ def encode_segments_device(
     cap_per_block: int,
     pad_ones: bool = True,
     deposit_threshold: int = 256,
-    fused: bool = True,
-    custom_tables=None,
+    luts=None,
 ):
     """Segment-parallel entropy encode: S independent byte-aligned streams
-    in ONE program — the mechanism behind single-chip restart-interval
+    in ONE program — the mechanism behind single-device restart-interval
     encodes (T.81 DRI semantics, each segment resetting the DC predictor)
     and the batched image encode (each image = one 'segment').
 
@@ -440,49 +350,35 @@ def encode_segments_device(
     resets. Returns (streams [S, seg_slots*cap_per_block] u32,
     total_bits [S] i32 incl. tail padding, overflow).
     """
-    from . import treepack
-
     n_total = zz.shape[0]
     assert n_total % seg_slots == 0
-    s = n_total // seg_slots
     w_t, bits, overflow = _per_block_words(
-        zz, table_sel, dc_diff, cap_per_block, fused,
-        custom_tables=custom_tables,
+        zz, table_sel, dc_diff, cap_per_block, luts=luts
     )
     if n_valid < n_total:
         mask = jnp.arange(n_total) < n_valid
         bits = jnp.where(mask, bits, 0)
         w_t = jnp.where(mask[None, :], w_t, 0)
-    from . import pallas_concat
+    return segment_streams(w_t, bits, seg_slots, seg_slots * cap_per_block,
+                           pad_ones, overflow,
+                           deposit_threshold=deposit_threshold)
 
-    # Any restart interval rides the Pallas per-segment concat: pad each
-    # segment's (words, bits) columns to a 128-slot multiple AFTER the
-    # block pack (padded slots carry zero bits by construction, so no
-    # interior masking is needed and the pack kernel does no extra work).
-    seg128 = -(-seg_slots // 128) * 128
-    if pallas_concat.segments_pallas_ok(seg128, cap_per_block):
-        if seg128 != seg_slots:
-            w_p = jnp.pad(
-                w_t.reshape(cap_per_block, s, seg_slots),
-                ((0, 0), (0, 0), (0, seg128 - seg_slots)),
-            ).reshape(cap_per_block, s * seg128)
-            b_p = jnp.pad(
-                bits.reshape(s, seg_slots),
-                ((0, 0), (0, seg128 - seg_slots)),
-            ).reshape(-1)
-        else:
-            w_p, b_p = w_t, bits
-        streams, totals = pallas_concat.concat_segments_pallas(
-            w_p, b_p, seg128, seg_slots * cap_per_block,
-            interpret=jax.default_backend() == "cpu",
-        )
-    else:
-        streams, totals = treepack.concat_segments_tree(
-            w_t.reshape(cap_per_block, s, seg_slots),
-            bits.reshape(s, seg_slots),
-            out_words_per_seg=seg_slots * cap_per_block,
-            deposit_threshold=deposit_threshold,
-        )
+
+def segment_streams(w_t, bits, seg: int, out_words_per_seg: int,
+                    pad_ones: bool, overflow, deposit_threshold: int = 256):
+    """Per-unit packed streams (words_t [C, S*seg], bits [S*seg]; a unit
+    is a block or an MCU) -> S byte-aligned segment streams
+    (treepack.concat_segments_tree + tail padding). Returns (streams
+    [S, out_words_per_seg] u32, total_bits [S] i32, overflow)."""
+    from . import treepack
+
+    c, n = w_t.shape
+    s = n // seg
+    streams, totals = treepack.concat_segments_tree(
+        w_t.reshape(c, s, seg), bits.reshape(s, seg),
+        out_words_per_seg=out_words_per_seg,
+        deposit_threshold=deposit_threshold,
+    )
     return (*treepack.apply_tail_padding_segments(streams, totals, pad_ones),
             overflow)
 
@@ -497,14 +393,14 @@ def encode_scan_device(
     packer: str = "tree",
     stuff: bool = True,
     deposit_threshold: int = 256,
-    fused: bool = True,
+    luts=None,
 ):
     """Full on-device entropy encode of one scan segment.
 
     [nb, 64] zigzag levels -> (stuffed bytes u8 [cap], nbytes i32). The
     caller slices to nbytes on host and splices between SOS and EOI.
     seg_len only affects the DC predictor (callers produce one byte-aligned
-    output per restart segment by invoking this per segment / per shard).
+    output per restart segment with encode_segments_device).
 
     Returns (bytes, nbytes, overflowed). capacity_words defaults to the
     absolute worst case; callers may pass a tight heuristic capacity (the
@@ -519,51 +415,19 @@ def encode_scan_device(
         from . import treepack
 
         cap_per_block = max(1, capacity_words // nb)
-        multi_table = isinstance(table_sel, np.ndarray)
-        if fused and cap_per_block <= 16 and (
-            isinstance(table_sel, int)
-            or (multi_table and dc_diff is not None)
-        ):
-            # Fully fused Pallas path: zigzag levels -> packed per-block
-            # streams in one kernel (no slot tensors materialized).
-            # Multi-table (interleaved color) scans run one launch per
-            # table class with a static-gather merge (_fused_grouped_pack).
-            interp = jax.default_backend() == "cpu"
-            if multi_table:
-                bw_t, bb, overflow = _fused_grouped_pack(
-                    zz.astype(jnp.int32), table_sel, dc_diff,
-                    cap_per_block, interp,
-                )
-            else:
-                from . import pallas_pack
-
-                if dc_diff is None:
-                    dc_diff = dc_differences(
-                        zz.astype(jnp.int32)[:, 0], seg_len
-                    )
-                bw_t, bb, overflow = pallas_pack.encode_blocks_pallas(
-                    zz, dc_diff, cap=cap_per_block, table=table_sel,
-                    interpret=interp,
-                )
-            words, total_bits = treepack.concat_blocks_tree(
-                bw_t, bb, deposit_threshold=deposit_threshold
-            )
-            words, total_bits = treepack._apply_tail_padding(
-                words, total_bits, pad_ones
-            )
-        else:
-            values, lengths = symbolize_elements64(zz, table_sel, dc_diff, seg_len)
-            words, total_bits, overflow = treepack.pack_slots_tree(
-                values, lengths, cap_per_block, pad_ones, c0=3,
-                deposit_threshold=deposit_threshold,
-            )
+        values, lengths = symbolize_elements64(zz, table_sel, dc_diff,
+                                               seg_len, luts)
+        words, total_bits, overflow = treepack.pack_slots_tree(
+            values, lengths, cap_per_block, pad_ones, c0=3,
+            deposit_threshold=deposit_threshold,
+        )
         if not stuff:
             # Caller finishes on host (native.words_to_stuffed) — saves the
             # byte-level scatter pass on device.
             return words, total_bits, overflow
         out, nbytes = stuff_bytes_device(words, total_bits)
         return out, nbytes, overflow
-    values, lengths = symbolize_slots(zz, table_sel, dc_diff, seg_len)
+    values, lengths = symbolize_slots(zz, table_sel, dc_diff, seg_len, luts)
     words, total_bits = pack_bits_device(values, lengths, capacity_words, pad_ones)
     if not stuff:
         return words, total_bits, total_bits > capacity_words * 32

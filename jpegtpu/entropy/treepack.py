@@ -1,23 +1,22 @@
 """Hierarchical bitstream packing: dense shift-or merge tree, no scatter.
 
 The scatter-add packer (entropy.device.pack_bits_device) is semantically
-clean but TPU scatters retire ~1 element per several 10s of cycles — for a
-12 MPix image (37M slot contributions) that is seconds of runtime, 50x the
-whole DCT transform. This module reformulates packing as a reduction:
+clean, but it issues one scatter element per slot contribution. This
+module reformulates packing as a reduction:
 
     bitstream concatenation is associative, so packing N variable-length
     codes is a balanced binary REDUCTION over MSB-aligned word arrays —
-    every level is dense vector work (pad, OR, per-element barrel shifts)
-    which the VPU executes at full rate. No gathers, no scatters.
+    every level is dense vector work (pad, OR, per-element barrel
+    shifts). No gathers, no scatters.
 
-Layout matters on TPU: an element's word array must not sit on the minor
-(lane) axis while small — a [N, 2] uint32 array pads 2 lanes to 128. So
-the tree runs TRANSPOSED ([C, N]: capacity on sublanes, elements on
-lanes) while C < 128, then flips to row-major [N, C] for the top levels
-where C is large and N small.
+The tree runs TRANSPOSED ([C, N]: capacity major, elements minor) while
+the per-element capacity C is small, then flips to row-major [N, C] for
+the top levels where C is large and N small; the last few large
+elements are deposited sequentially (_deposit_concat).
 
-This is the TPU answer to the reference's serial 64-bit accumulator
-BitWriter (dsp huffman.c:113-156): same output bits, log-depth parallel.
+This is the parallel answer to the reference's serial 64-bit
+accumulator BitWriter (dsp huffman.c:113-156): same output bits,
+log-depth parallel.
 """
 from __future__ import annotations
 
@@ -112,58 +111,26 @@ def _fuse_subslots(values: jnp.ndarray, lengths: jnp.ndarray, c_out: int = 2):
 
 def pack_slots_tree(values3: jnp.ndarray, lengths3: jnp.ndarray,
                     cap_words_per_block: int, pad_ones: bool = True,
-                    c0: int | None = None, block_packer: str = "auto",
-                    deposit_threshold: int = 256):
+                    c0: int | None = None, deposit_threshold: int = 256):
     """Pack [nb, E, K] sub-slot codes (emission order element-major then
-    sub-slot) into one stream. The K sub-slots fuse elementwise; the
-    block-internal reduction runs either as the Pallas vectorized
-    BitWriter (block_packer="pallas"; needs c0 == 3 and a small capacity)
-    or the XLA binary tree ("tree"); "auto" picks Pallas when eligible.
-    c0 = starting element capacity in words (default: enough for 32*K
-    bits worst case; the 5-sub-slot 83-bit layout passes 3)."""
+    sub-slot) into one stream. The K sub-slots fuse elementwise, each
+    block's elements reduce in a binary shift-or tree, and the block
+    streams concatenate (concat_blocks_tree). c0 = starting element
+    capacity in words (default: enough for 32*K bits worst case; the
+    5-sub-slot 83-bit layout passes 3)."""
     nb, e, k = values3.shape
     if c0 is None:
         c0 = 2 if k <= 3 else k
     c0 = min(c0, cap_words_per_block)
     words_t, bits_t = _fuse_subslots(values3, lengths3, c0)
-    use_pallas = block_packer == "pallas" or (
-        block_packer == "auto" and c0 == 3 and cap_words_per_block <= 16
+    bw_t, bb, overflow = _block_reduce(
+        words_t, bits_t, e, c0, cap_words_per_block, nb
     )
-    if use_pallas:
-        from . import pallas_pack
-
-        bw_t, bb, overflow = pallas_pack.pack_blocks_pallas(
-            words_t, bits_t, cap=cap_words_per_block,
-            interpret=jax.default_backend() == "cpu",
-        )
-    else:
-        bw_t, bb, overflow = _block_reduce(
-            words_t, bits_t, e, c0, cap_words_per_block, nb
-        )
     stream, total = concat_blocks_tree(
         bw_t, bb, deposit_threshold=deposit_threshold
     )
     stream, total = _apply_tail_padding(stream, total, pad_ones)
     return stream, total, overflow
-
-
-def pack_block_tree(values: jnp.ndarray, lengths: jnp.ndarray,
-                    cap_words_per_block: int):
-    """Per-block slot codes -> packed per-block bitstreams.
-
-    values/lengths: [nb, S] uint32 (right-aligned, <= 32 bits each) / i32.
-    Returns (words [cap, nb] u32 MSB-aligned TRANSPOSED, bits [nb] i32,
-    overflow).
-    """
-    nb, s = values.shape
-    lengths = lengths.astype(jnp.int32)
-    leaves = jnp.where(
-        lengths > 0, values << jnp.clip(32 - lengths, 0, 31).astype(jnp.uint32), 0
-    ).astype(jnp.uint32)
-    # Transposed element layout: [C=1, E=s, nb].
-    words = leaves.T[None, :, :]
-    bits = lengths.T  # [E, nb]
-    return _block_reduce(words, bits, s, 1, cap_words_per_block, nb)
 
 
 def _block_reduce(words, bits, e, c, cap_words_per_block, nb):
@@ -239,7 +206,7 @@ def concat_blocks_tree(words_t: jnp.ndarray, bits: jnp.ndarray,
 
     Radix-4 merges: each level concatenates four neighbors with three
     cumulative shifts — same shift work as two binary levels but HALF the
-    pad/slice relayout rounds, which dominate level cost on TPU. Element
+    pad/slice relayout rounds. Element
     counts are padded up to radix multiples with zero-LENGTH elements;
     a zero-length tail contributes nothing wherever it lands, so no
     odd-carry branches exist."""
@@ -247,7 +214,7 @@ def concat_blocks_tree(words_t: jnp.ndarray, bits: jnp.ndarray,
     bits = bits.astype(jnp.int32)
     words, n, c = words_t, nb, cb
 
-    # Phase A: transposed merges while capacity is lane-unfriendly.
+    # Phase A: transposed merges while the per-element capacity is small.
     while n > deposit_threshold and radix * c < _FLIP_C:
         r = radix if n > 2 else 2
         c_next = r * c
@@ -441,20 +408,6 @@ def apply_tail_padding_segments(streams: jnp.ndarray, totals: jnp.ndarray,
         hit = jnp.arange(w, dtype=jnp.int32)[None, :] == widx[:, None]
         streams = streams | jnp.where(hit, mask[:, None], 0)
     return streams, totals + padlen
-
-
-def pack_bits_tree(values: jnp.ndarray, lengths: jnp.ndarray,
-                   cap_words_per_block: int, pad_ones: bool = True):
-    """Full tree packer: per-slot codes -> one packed word stream.
-
-    values/lengths: [nb, S] (any slot layout, emission order along S).
-    Returns (words u32 [nb * cap], total_bits i32 incl. final-byte padding,
-    overflow bool).
-    """
-    bw_t, bb, overflow = pack_block_tree(values, lengths, cap_words_per_block)
-    stream, total = concat_blocks_tree(bw_t, bb)
-    stream, total = _apply_tail_padding(stream, total, pad_ones)
-    return stream, total, overflow
 
 
 def _apply_tail_padding(stream: jnp.ndarray, total: jnp.ndarray, pad_ones: bool):

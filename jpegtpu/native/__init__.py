@@ -31,12 +31,15 @@ def _load():
         _tried = True
         try:
             if (not os.path.exists(_SO)) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+                # per-process temp name: concurrent first users (test
+                # workers) must not write one file at once
+                tmp = f"{_SO}.{os.getpid()}.tmp"
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", _SO + ".tmp", _SRC],
+                    ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
                     check=True,
                     capture_output=True,
                 )
-                os.replace(_SO + ".tmp", _SO)
+                os.replace(tmp, _SO)
             lib = ctypes.CDLL(_SO)
             lib.jt_stuff_bytes.restype = ctypes.c_size_t
             lib.jt_stuff_bytes.argtypes = [
@@ -45,11 +48,6 @@ def _load():
             lib.jt_words_to_stuffed.restype = ctypes.c_size_t
             lib.jt_words_to_stuffed.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ]
-            lib.jt_scan_from_words.restype = ctypes.c_size_t
-            lib.jt_scan_from_words.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.jt_pack_codes.restype = ctypes.c_size_t
             lib.jt_pack_codes.argtypes = [
@@ -91,27 +89,6 @@ def words_to_stuffed(words: np.ndarray, total_bits: int) -> bytes:
     nbytes = (int(total_bits) + 7) // 8
     out = np.empty(2 * nbytes + 4, dtype=np.uint8)
     n = lib.jt_words_to_stuffed(words.ctypes.data, int(total_bits), out.ctypes.data)
-    return out[:n].tobytes()
-
-
-def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray,
-                    rst_phase: int = 0, trailing: bool = False) -> bytes:
-    """One stitched word buffer of byte-aligned segments -> the full
-    RST-delimited stuffed scan (stuff(seg_0) RST stuff(seg_1) ...) in one
-    native pass. seg_bytes: per-segment byte lengths; rst_phase: index of
-    the marker after segment 0; trailing: also emit a marker after the
-    last segment (callers continuing the cycle across chunks/shards)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native runtime unavailable")
-    words = np.ascontiguousarray(words, dtype=np.uint32)
-    seg_bytes = np.ascontiguousarray(seg_bytes, dtype=np.int64)
-    total = int(seg_bytes.sum())
-    out = np.empty(2 * total + 2 * seg_bytes.size + 4, dtype=np.uint8)
-    n = lib.jt_scan_from_words(
-        words.ctypes.data, seg_bytes.ctypes.data, seg_bytes.size,
-        int(rst_phase), 1 if trailing else 0, out.ctypes.data,
-    )
     return out[:n].tobytes()
 
 

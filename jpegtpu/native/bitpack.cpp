@@ -1,6 +1,6 @@
 // Native host bitstream runtime for jpegtpu.
 //
-// The TPU emits either (a) a packed MSB-first word stream needing only
+// The device emits either (a) a packed MSB-first word stream needing only
 // 0xFF byte stuffing, or (b) per-symbol (value, nbits) code streams when
 // the host packs entirely by itself. Both finishing steps are serial,
 // byte-granular work that a CPU does at GB/s — the role the reference
@@ -69,64 +69,6 @@ size_t jt_words_to_stuffed(const uint32_t* words, int64_t total_bits,
     uint8_t b = static_cast<uint8_t>(words[bi / 4] >> (24 - 8 * (bi % 4)));
     out[o++] = b;
     if (b == 0xFF) out[o++] = 0;
-  }
-  return o;
-}
-
-// Full restart-marker scan from ONE stitched device word buffer: the
-// buffer holds byte-aligned segments back to back (entropy/pallas_concat
-// stitch_segments_pallas); emit stuff(seg_0) RST stuff(seg_1) RST ... in
-// one pass. The marker after segment s is FFD0 + ((rst_phase + s) & 7),
-// written for s < n_seg-1 and, when `trailing`, after the last segment
-// too (multi-chunk / multi-shard callers continue the cycle across
-// calls). seg_bytes[s] = segment byte length (totals_bits / 8). Words
-// are host-order uint32, bytes MSB-first (same convention as
-// jt_words_to_stuffed). `out` must hold 2 * sum(seg_bytes) + 2 * n_seg.
-// Returns the output length. This is the one-pass host finish that pairs
-// with the device-side segment stitch — the A72-role work of the
-// reference's client reassembly (dsp_port/jpeg_client/main.c:483-530).
-size_t jt_scan_from_words(const uint32_t* words, const int64_t* seg_bytes,
-                          int64_t n_seg, int rst_phase, int trailing,
-                          uint8_t* out) {
-  size_t o = 0;
-  int64_t b = 0;  // global byte cursor into the word buffer
-  for (int64_t s = 0; s < n_seg; ++s) {
-    int64_t end = b + seg_bytes[s];
-    // head: bytes until the cursor is word-aligned
-    while (b < end && (b & 3)) {
-      uint8_t v = static_cast<uint8_t>(words[b >> 2] >> (24 - 8 * (b & 3)));
-      out[o++] = v;
-      if (v == 0xFF) out[o++] = 0;
-      ++b;
-    }
-    // body: unrolled full words
-    while (b + 4 <= end) {
-      uint32_t w = words[b >> 2];
-      uint8_t b0 = static_cast<uint8_t>(w >> 24);
-      uint8_t b1 = static_cast<uint8_t>(w >> 16);
-      uint8_t b2 = static_cast<uint8_t>(w >> 8);
-      uint8_t b3 = static_cast<uint8_t>(w);
-      out[o++] = b0;
-      if (b0 == 0xFF) out[o++] = 0;
-      out[o++] = b1;
-      if (b1 == 0xFF) out[o++] = 0;
-      out[o++] = b2;
-      if (b2 == 0xFF) out[o++] = 0;
-      out[o++] = b3;
-      if (b3 == 0xFF) out[o++] = 0;
-      b += 4;
-    }
-    // tail
-    while (b < end) {
-      uint8_t v = static_cast<uint8_t>(words[b >> 2] >> (24 - 8 * (b & 3)));
-      out[o++] = v;
-      if (v == 0xFF) out[o++] = 0;
-      ++b;
-    }
-    if (s + 1 < n_seg || trailing) {
-      out[o++] = 0xFF;
-      out[o++] = static_cast<uint8_t>(0xD0 + ((rst_phase + s) & 7));
-    }
   }
   return o;
 }

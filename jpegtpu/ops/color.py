@@ -45,10 +45,9 @@ def rgb_planar_to_ycbcr(rgbp: jnp.ndarray):
     """Channel-PLANAR [3, H, W] uint8 -> (y, cb, cr) 2D uint8 planes.
 
     The planar layout is the device-boundary contract for the color path:
-    an interleaved [H, W, 3] array puts 3 elements on the minor (lane)
-    axis, which TPU layouts pad catastrophically and every channel slice
-    then re-relayouts. The reference's DSP host made the same call —
-    planar R/G/B channels in shared DDR (dsp bmp_handler.c:78-80).
+    each channel is one contiguous plane, so a channel read is a plain
+    slice. The reference's DSP host made the same call — planar R/G/B
+    channels in shared DDR (dsp bmp_handler.c:78-80).
     Same fixed-point math as rgb_to_ycbcr.
     """
     r = rgbp[0].astype(jnp.int32)
@@ -67,10 +66,8 @@ def subsample_420(chan: jnp.ndarray) -> jnp.ndarray:
     H and W must be even (pad with pad_edge(multiple=2) first).
     Rounds to nearest (adds 2 before >> 2), matching libjpeg's box filter.
 
-    Lowered as a native 2x2/stride-2 reduce_window (XLA pooling): both a
-    reshape to [H/2, 2, W/2, 2] (minor axis 2 -> 64x lane padding,
-    ~29 ms/12 MPix measured) and four stride-2 slices (~200 ms) are
-    layout-hostile on TPU; the pooling primitive is the supported form.
+    Lowered as a native 2x2/stride-2 reduce_window (XLA pooling) rather
+    than a reshape to [H/2, 2, W/2, 2] or four stride-2 slices.
     """
     import jax.lax as lax
 

@@ -1,9 +1,9 @@
-"""2D 8x8 DCT as batched matmuls on the MXU (device, JAX).
+"""2D 8x8 DCT as batched matmuls (device, JAX).
 
 The reference computes an O(N^4) scalar quadruple loop per block
 (natural_c dct.c:63-96); its DSP port already discovered the separable
-matmul form F = T X T^T (dsp_port dct.c:78-103). On TPU that form maps
-directly onto the MXU: one einsum over thousands of blocks at once.
+matmul form F = T X T^T (dsp_port dct.c:78-103), which here is one
+einsum over thousands of blocks at once.
 
 Precision: float32 with HIGHEST matmul precision (int8-range inputs are
 exact in f32; coefficient parity verified against the reference's quantized

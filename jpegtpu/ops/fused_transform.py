@@ -1,21 +1,22 @@
 """Fused tiled transform: level shift -> 2D DCT -> quantize -> zigzag.
 
-The naive formulation (`ops/dct.py`) runs 8x8 matmuls batched over blocks
-— shapes the 128x128 MXU can't fill (8 of 128 sublanes). This module uses
+The naive formulation (`ops/dct.py`) runs 8x8 matmuls batched over
+blocks — products too small for a matrix unit to fill. This module uses
 the BLOCK-DIAGONAL embedding: a [T, T] matrix with the 8-point DCT basis
 repeated along the diagonal applies the per-8-row (and per-8-column)
-transform of a whole TxT pixel tile as ONE dense MXU matmul:
+transform of a whole TxT pixel tile as ONE dense matmul:
 
     F_tile = BD(T8) @ X_tile @ BD(T8)^t ,  T = 128 (16 blocks per side)
 
-The 16x MAC redundancy (dense vs 8-banded) is the price of full MXU
-utilization — measured ~20x faster than the batched-8x8 einsum for a
-12 MPix image. Quantization (reciprocal multiply + round-half-away, the
-reference's roundf, quantization.c:36) and the zigzag gather fuse into
-the same XLA program; only the int32 levels are materialized.
+The 16x MAC redundancy (dense vs 8-banded) buys dense matrix products.
+Quantization (true division + round-half-away, the reference's roundf,
+quantization.c:36) and the zigzag gather fuse into the same XLA program;
+only the int32 levels are materialized. The products run at
+Precision.HIGHEST: a TF32 product keeps ~10 mantissa bits and would
+move levels off the natural_c goldens.
 
-This is the TPU translation of the DSP port's central discovery — DCT as
-matmul (dsp dct.c:78-103) — pushed to the hardware's native shape.
+This is the DSP port's central discovery — DCT as matmul (dsp
+dct.c:78-103) — at tile scale.
 """
 from __future__ import annotations
 

@@ -2,9 +2,9 @@
 
 The float DCT path is faithful to the reference but leaves coefficients
 that sit exactly on a 0.5 rounding boundary at the mercy of each
-backend's summation order (MXU 3-pass vs CPU FMA — SURVEY.md §7.3 #2).
-This mode makes the whole transform integer-exact, so the SAME stream
-comes out of CPU, TPU, or any chip count:
+backend's summation order (SURVEY.md §7.3 #2). This mode makes the
+whole transform integer-exact, so the SAME stream comes out of every
+backend and any device count:
 
   * basis scaled to 11-bit fixed point: T_i = round(T * 2^11), |T_i| < 2^11
   * row pass   Y1 = T_i @ X        (|sum| <= 8 * 2^11 * 128 = 2^22)
@@ -16,7 +16,7 @@ Every intermediate stays below 2^24, so the arithmetic is exact even
 when a backend lowers integer dots through float32 units. The 11-bit
 basis costs < 0.05 dB PSNR vs the float path (tested).
 
-Uses the same block-diagonal MXU embedding as the float path
+Uses the same block-diagonal embedding as the float path
 (ops/fused_transform.py).
 """
 from __future__ import annotations

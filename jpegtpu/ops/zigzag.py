@@ -1,8 +1,8 @@
 """Zigzag scan (device, JAX).
 
 A static gather along the last axis — free for XLA to fuse. The DSP port
-spends a vector-permute kernel on this (dsp zigzag.c:33-114); on TPU it
-fuses into the surrounding elementwise work.
+spends a vector-permute kernel on this (dsp zigzag.c:33-114); under XLA
+it fuses into the surrounding elementwise work.
 """
 from __future__ import annotations
 

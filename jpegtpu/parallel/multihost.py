@@ -2,13 +2,13 @@
 
 The single-controller mesh mechanics of `parallel.sharding` extend to
 multiple hosts unchanged: initialize the distributed runtime, build a
-global mesh over every chip in the slice/pod, and run the same
-shard_map'd encode — XLA routes the per-shard all_gather over ICI within
-a slice and DCN across hosts (SURVEY.md §5.8).
+global mesh over every device of every host, and run the same
+shard_map'd encode — XLA routes the per-shard all_gather between the
+devices of a host and across hosts (SURVEY.md §5.8).
 
-This container exposes one host, so these helpers are exercised by the
-virtual-device tests and the multichip dry run; on a real pod they are
-the entry point.
+The tests exercise these helpers with two processes of virtual CPU
+devices (tests/test_multihost_2proc.py); on a multi-host cluster they
+are the entry point.
 
 Usage (same program on every host):
 

@@ -1,24 +1,24 @@
-"""Multi-chip sharded encode: MCU-row shards + restart-marker stitching.
+"""Multi-device sharded encode: MCU-row shards + restart-marker stitching.
 
 The reference is a single-image, single-core-offload encoder; its only
 "distributed" axis is the A72->C7x IPC boundary (SURVEY.md §2.4-2.5). The
-TPU-native scale-out replaces that with a jax.sharding.Mesh:
+scale-out here replaces that with a jax.sharding.Mesh:
 
   * The image is sharded by MCU rows (rows of 8x8 blocks) across the mesh
     axis — the "sequence parallel" analog for images (SURVEY.md §5.7).
   * The two serial dependencies of the JPEG scan are broken per shard:
     - the DC predictor resets at each restart marker (T.81 F.1.2.3), so a
-      shard == a restart segment and each chip runs an independent chain
+      shard == a restart segment and each device runs an independent chain
       (vs the reference's global lastDC, natural_c rle.c:59-70);
-    - the bitstream is byte-aligned per segment, so each chip packs its own
-      bytes and the host concatenates segment_0 || RST_0 || segment_1 || …
-  * The only cross-chip communication is an all_gather of per-shard byte
-    lengths (each chip then knows every segment's offset) — a few bytes
-    over ICI, replacing the reference's shared-DDR DTO handoff
+    - the bitstream is byte-aligned per segment, so each device packs its
+      own bytes and the host concatenates segment_0 || RST_0 || segment_1 …
+  * The only cross-device communication is an all_gather of per-shard
+    byte lengths (each device then knows every segment's offset) — a few
+    bytes, replacing the reference's shared-DDR DTO handoff
     (dsp main.c:471-490).
 
-Everything inside the shard_map is ordinary single-chip pipeline code, so
-the multichip path reuses ops/ and entropy/ verbatim.
+Everything inside the shard_map is ordinary single-device pipeline code,
+so the multi-device path reuses ops/ and entropy/ verbatim.
 """
 from __future__ import annotations
 
@@ -32,12 +32,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..config import EncodeConfig
 from ..entropy import device as entropy_device
 from ..io import jfif
-from ..ops import blocks
 from .. import pipeline
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """1-D mesh over the 'shard' axis. Within one slice this rides ICI."""
+    """1-D mesh over the 'shard' axis."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:
@@ -97,183 +96,61 @@ def _sharded_encode_fn(
 ):
     """Build the jitted sharded encode step for a padded shape.
 
-    Returns fn(img) -> (streams [n, k, W] u32, total_bits [n, k] i32,
-    overflow [n]): each shard packs k byte-aligned restart segments
-    (k > 1 only when the shard's MCU count exceeds DRI's 16-bit limit).
-    total_bits is REPLICATED across the mesh via all_gather so every host
-    of a multi-host mesh can read all lengths without touching
-    non-addressable shards.
+    Returns fn(img, luts) -> (streams [n, k, W] u32, total_bits [n, k]
+    i32, overflow): each shard packs k byte-aligned restart segments
+    (k > 1 only when the shard's MCU count exceeds DRI's 16-bit limit)
+    with the runtime Huffman tables luts (tables.stacked_luts,
+    replicated). total_bits is REPLICATED across the mesh via all_gather
+    so every host of a multi-host mesh can read all lengths without
+    touching non-addressable shards.
     """
     n = mesh.devices.size
-    basis_np = cfg.dct_basis()
-    qtable_np = cfg.luma_quant.astype(np.float32)
     nb_local = (ph // n // 8) * (pw // 8)
     seg_blocks = restart_subsegments(ph // n // 8, pw // 8)
 
-    def local_encode(img_local):
-        basis = jnp.asarray(basis_np)
-        qtable = jnp.asarray(qtable_np)
-        zz = pipeline._gray_levels(
-            img_local, cfg, basis, qtable, is_rgb
-        ).astype(jnp.int32)
+    def local_encode(img_local, luts):
+        zz = pipeline._gray_levels(img_local, cfg, is_rgb).astype(jnp.int32)
         dcd = entropy_device.dc_differences(zz[:, 0], seg_blocks)
         streams, totals, overflow = entropy_device.encode_segments_device(
             zz, seg_blocks, nb_local, 0, dcd, cap_words_per_block,
-            pad_ones=cfg.pad_ones,
+            pad_ones=cfg.pad_ones, luts=luts,
         )
-        # Cross-shard exchange: every chip (hence every host) learns all
-        # segment lengths — ~n*k*4 bytes over ICI/DCN, replacing the
-        # reference's shared-DDR DTO handoff (dsp main.c:471-490).
+        # Cross-shard exchange: every device (hence every host) learns
+        # all segment lengths — ~n*k*4 bytes, replacing the reference's
+        # shared-DDR DTO handoff (dsp main.c:471-490).
         all_totals = jax.lax.all_gather(totals, "shard")  # [n, k]
         return streams[None], all_totals, overflow[None]
 
+    spec = P("shard", None, None) if is_rgb else P("shard", None)
     sharded = jax.shard_map(
         local_encode,
         mesh=mesh,
-        in_specs=P("shard", None),
+        in_specs=(spec, P()),
         # all_totals is identical on every shard -> replicated out_spec.
         out_specs=(P("shard", None, None), P(None, None), P("shard")),
-        # pallas_call inside shard_map needs vma annotations on out_shape
-        # unless varying-mesh-axis checking is off; everything here is
-        # fully shard-local so the check adds nothing.
         check_vma=False,
     )
 
-    def fn(img):
-        streams, all_totals, overflow = sharded(img)
+    def fn(img, luts):
+        streams, all_totals, overflow = sharded(img, luts)
         return streams, all_totals, jnp.any(overflow)
 
     return jax.jit(fn)
 
 
-@functools.lru_cache(maxsize=32)
-def _sharded_encode_stitched_fn(
-    mesh: Mesh,
-    ph: int,
-    pw: int,
-    cfg: EncodeConfig,
-    is_rgb: bool,
-    cap_words_per_block: int,
-    rt: bool = False,
-):
-    """Stitched sharded encode: each shard runs the SAME all-Pallas raw
-    chain as the flagship single-chip path (fused transform + fused
-    symbolize/pack) and stitches its k restart segments into ONE
-    contiguous byte-aligned device buffer (pallas_concat stitch) — so a
-    sharded encode finishes with per-shard single-buffer prefix fetches
-    instead of the full-capacity per-segment download that made the r4
-    sharded path 5.5x slower than the unsharded one (VERDICT r4 weak #1).
-
-    Returns fn(img[, tabs]) -> (streams [n, n_chunks, W] u32,
-    seg_totals [n, k] i32, chunk_totals [n, n_chunks] i32, overflow);
-    totals are replicated via all_gather so every host can assemble.
-    rt=True threads runtime Huffman tables (sharded 2-pass pass 2)."""
-    n = mesh.devices.size
-    nb_local = (ph // n // 8) * (pw // 8)
-    seg_blocks = restart_subsegments(ph // n // 8, pw // 8)
-    k = nb_local // seg_blocks
-    spc = (
-        1 if k == 1
-        else pipeline.stitch_geometry(nb_local, seg_blocks,
-                                      cap_words_per_block)[1]
-    )
-    assert spc > 0, "caller must gate on sharded_stitch_plan"
-
-    def local_encode(img_local, *tabs):
-        ct = tabs[0] if rt else None
-        if k == 1:
-            words, total, overflow = pipeline._gray_encode_body_raw(
-                img_local, cfg, is_rgb, cap_words_per_block, False,
-                custom_tables=ct,
-            )
-            chunks = words[None]
-            seg_tot = total[None].astype(jnp.int32)
-            chunk_tot = seg_tot
-        else:
-            chunks, seg_tot, chunk_tot, overflow = (
-                pipeline._gray_restart_body_raw(
-                    img_local, cfg, is_rgb, cap_words_per_block,
-                    seg_blocks, spc, custom_tables=ct,
-                )
-            )
-        all_seg = jax.lax.all_gather(seg_tot, "shard")
-        all_chunk = jax.lax.all_gather(chunk_tot, "shard")
-        return chunks[None], all_seg, all_chunk, overflow[None]
-
-    img_spec = P("shard", None, None) if is_rgb else P("shard", None)
-    in_specs = (img_spec, P()) if rt else (img_spec,)
-    sharded = jax.shard_map(
-        local_encode,
-        mesh=mesh,
-        in_specs=in_specs,
-        out_specs=(P("shard", None, None), P(None, None),
-                   P(None, None), P("shard")),
-        check_vma=False,
-    )
-
-    def fn(img, *tabs):
-        streams, seg_tot, chunk_tot, overflow = sharded(img, *tabs)
-        return streams, seg_tot, chunk_tot, jnp.any(overflow)
-
-    return jax.jit(fn)
-
-
-def sharded_stitch_plan(ph: int, pw: int, n: int, cap: int):
-    """(k restart segments per shard, segs_per_chunk) for the stitched
-    sharded path; segs_per_chunk == 0 -> infeasible, use the fallback."""
-    nb_local = (ph // n // 8) * (pw // 8)
-    seg_blocks = restart_subsegments(ph // n // 8, pw // 8)
-    k = nb_local // seg_blocks
-    if k == 1:
-        return 1, 1
-    return k, pipeline.stitch_geometry(nb_local, seg_blocks, cap)[1]
-
-
-def fetch_stitched_shards(streams, seg_tot_dev, chunk_tot_dev,
-                          overflow_dev, spec_key=None):
-    """One-roundtrip speculative fetch of every shard's chunk prefixes
-    (plus totals + overflow) — the sharded twin of
-    pipeline.fetch_stitched. streams [n, n_chunks, W]. Returns
-    (words[shard][chunk] arrays, seg_totals [n, k] np) or (None, None)."""
-    n, n_chunks, wpc = streams.shape
-    flat, totals = pipeline.fetch_chunk_prefixes(
-        [streams[i, j] for i in range(n) for j in range(n_chunks)],
-        overflow_dev, (chunk_tot_dev, seg_tot_dev), spec_key,
-    )
-    if flat is None:
-        return None, None
-    words = [
-        flat[i * n_chunks : (i + 1) * n_chunks] for i in range(n)
-    ]
-    return words, np.asarray(totals[1])
-
-
 @functools.lru_cache(maxsize=16)
 def _sharded_stats_fn(mesh: Mesh, ph: int, pw: int, cfg: EncodeConfig,
-                      is_rgb: bool, raw: bool = False):
+                      is_rgb: bool):
     """Pass 1 of SHARDED 2-pass optimal coding: per-shard symbol
     histograms (same levels + per-segment DC chains the sharded encode
-    packs), psum'd over the mesh — every chip (and host) holds the
-    global counts, so every host builds the SAME tables. raw=True
-    histograms the raw Pallas-transform levels (mandatory when pass 2
-    rides the stitched raw chain; see pipeline._gray_levels_raw_scan)."""
+    packs), psum'd over the mesh — every device (and host) holds the
+    global counts, so every host builds the SAME tables."""
     n = mesh.devices.size
-    basis_np = cfg.dct_basis()
-    qtable_np = cfg.luma_quant.astype(np.float32)
     seg_blocks = restart_subsegments(ph // n // 8, pw // 8)
 
     def local_stats(img_local):
-        if raw:
-            zz = pipeline._gray_levels_raw_scan(
-                img_local, cfg, is_rgb
-            ).astype(jnp.int32)
-        else:
-            zz = pipeline._gray_levels(
-                img_local, cfg, jnp.asarray(basis_np),
-                jnp.asarray(qtable_np), is_rgb,
-            ).astype(jnp.int32)
-        dcd = entropy_device.dc_differences(zz[:, 0], seg_blocks)
-        st = entropy_device.symbol_histograms(zz, dc_diff=dcd)
+        zz = pipeline._gray_levels(img_local, cfg, is_rgb).astype(jnp.int32)
+        st = entropy_device.symbol_histograms(zz, seg_len=seg_blocks)
         return jax.tree.map(lambda x: jax.lax.psum(x, "shard"), st)
 
     spec = P("shard", None, None) if is_rgb else P("shard", None)
@@ -282,48 +159,6 @@ def _sharded_stats_fn(mesh: Mesh, ph: int, pw: int, cfg: EncodeConfig,
         check_vma=False,
     )
     return jax.jit(sharded)
-
-
-@functools.lru_cache(maxsize=16)
-def _sharded_encode_fn_rt(
-    mesh: Mesh, ph: int, pw: int, cfg: EncodeConfig, is_rgb: bool,
-    cap_words_per_block: int,
-):
-    """Pass 2 of sharded 2-pass optimal coding: _sharded_encode_fn with
-    the Huffman tables as RUNTIME data (replicated across the mesh)."""
-    n = mesh.devices.size
-    basis_np = cfg.dct_basis()
-    qtable_np = cfg.luma_quant.astype(np.float32)
-    nb_local = (ph // n // 8) * (pw // 8)
-    seg_blocks = restart_subsegments(ph // n // 8, pw // 8)
-
-    def local_encode(img_local, tabs):
-        zz = pipeline._gray_levels(
-            img_local, cfg, jnp.asarray(basis_np), jnp.asarray(qtable_np),
-            is_rgb,
-        ).astype(jnp.int32)
-        dcd = entropy_device.dc_differences(zz[:, 0], seg_blocks)
-        streams, totals, overflow = entropy_device.encode_segments_device(
-            zz, seg_blocks, nb_local, 0, dcd, cap_words_per_block,
-            pad_ones=cfg.pad_ones, custom_tables=(tabs,),
-        )
-        all_totals = jax.lax.all_gather(totals, "shard")
-        return streams[None], all_totals, overflow[None]
-
-    spec = P("shard", None, None) if is_rgb else P("shard", None)
-    sharded = jax.shard_map(
-        local_encode,
-        mesh=mesh,
-        in_specs=(spec, P()),
-        out_specs=(P("shard", None, None), P(None, None), P("shard")),
-        check_vma=False,
-    )
-
-    def fn(img, tabs):
-        streams, all_totals, overflow = sharded(img, tabs)
-        return streams, all_totals, jnp.any(overflow)
-
-    return jax.jit(fn)
 
 
 def global_input(image_np: np.ndarray, mesh: Mesh, spec: P):
@@ -352,7 +187,7 @@ def gather_segments_multihost(streams, totals_np: np.ndarray) -> list[bytes]:
     saveJPEG). Single-process: one device_get. Multi-host: each host
     fetches ONLY its addressable shards of the sharded `streams` array,
     stuffs its segments, and the hosts exchange the (bucketed-padded)
-    segment bytes over DCN via process_allgather — every host ends up
+    segment bytes between hosts via process_allgather — every host ends up
     with the full ordered segment list; the coordinator writes the file.
     """
     n, k, _w = streams.shape
@@ -376,7 +211,7 @@ def gather_segments_multihost(streams, totals_np: np.ndarray) -> list[bytes]:
     lens = np.asarray([len(seg_bytes[i]) for i in my_ids], np.int64)
     # Segments concatenate into ONE flat per-host buffer padded to the
     # max per-host TOTAL (gathered first, tiny), so skewed segment sizes
-    # cost nothing extra: DCN traffic is n_hosts * max_host_total bytes,
+    # cost nothing extra: host-to-host traffic is n_hosts * max_host_total bytes,
     # not n_seg * max_segment (the r3 O(n_seg x max_len) exchange).
     flat = np.frombuffer(
         b"".join(seg_bytes[i] for i in my_ids), np.uint8
@@ -407,10 +242,10 @@ def encode_grayscale_sharded(
     mesh: Mesh | None = None,
     orig_shape: tuple[int, int] | None = None,
 ) -> bytes:
-    """Multi-chip grayscale encode: returns a standard JFIF stream whose
+    """Multi-device grayscale encode: returns a standard JFIF stream whose
     scan is n_shards * k restart segments (k > 1 only when a shard holds
     more MCUs than DRI's 16-bit interval can express). Decodes identically
-    to a single-chip encode of the same pixels at the same restart
+    to a single-device encode of the same pixels at the same restart
     interval (verified by tests/test_sharding.py). Works on multi-host
     meshes: every host calls this with the full image; every host returns
     the complete stream (coordinator writes the file).
@@ -432,44 +267,15 @@ def encode_grayscale_sharded(
     spec = P("shard", None, None) if is_rgb else P("shard", None)
     img_global = global_input(image, mesh, spec)
 
-    # The stitched fast path applies when every fused-capacity rung has a
-    # feasible stitch plan AND assembly is single-process (multi-host
-    # hosts fetch their addressable shards whole; keep the proven
-    # per-segment exchange there).
-    use_stitched = jax.process_count() == 1 and all(
-        sharded_stitch_plan(ph, pw, n, c)[1] > 0 for c in (8, 16)
-    )
-
-    specs = None
+    specs, luts = None, entropy_device.standard_luts()
     if config.optimize_huffman:
         # Sharded 2-pass optimal coding: per-shard histograms psum to
         # global counts (pass 1), every host package-merges the SAME
         # tables, pass 2 re-encodes with the tables as runtime data.
-        # Frequencies are FLOORED (tables.floor_frequencies): the two
-        # passes are separate XLA programs, and a cross-program rounding
-        # tie must never select a code-less symbol. Pass 1 histograms
-        # the levels of whichever transform pass 2 will run (raw Pallas
-        # on the stitched path, staged XLA on the fallback).
-        from .. import tables
-        from ..entropy import pallas_pack
-
         stats = jax.device_get(
-            _sharded_stats_fn(mesh, ph, pw, config, is_rgb,
-                              raw=use_stitched)(img_global)
+            _sharded_stats_fn(mesh, ph, pw, config, is_rgb)(img_global)
         )
-        freqs = tables.floor_frequencies(
-            entropy_device.assemble_histograms(stats)
-        )
-        specs = {
-            k: tables.optimal_spec(freqs[k]) for k in ("dc_lum", "ac_lum")
-        }
-        luts = tables.huffman_luts_from_specs(specs)
-        tabs = jnp.asarray(
-            pallas_pack.pack_runtime_tables(
-                luts["dc_lum"][0], luts["dc_lum"][1],
-                luts["ac_lum"][0], luts["ac_lum"][1],
-            )
-        )
+        specs, luts = pipeline.optimal_tables(stats, pipeline.GRAY_CLASSES)
 
     seg_blocks = restart_subsegments(ph // n // 8, pw // 8)
     restart_cfg = EncodeConfig(
@@ -481,42 +287,8 @@ def encode_grayscale_sharded(
     )
 
     for cap in pipeline.capacity_ladder(config):
-        if specs is not None and cap > 16:
-            # Runtime tables ride the fused path only; pathological
-            # content past its capacity (dense noise at low Q) degrades
-            # to the standard-table sharded encode instead of failing —
-            # the single-chip optimized path's fallback contract
-            # (pipeline._encode_grayscale_optimized_device).
-            specs = None
-        if use_stitched and cap <= 16:
-            k, spc = sharded_stitch_plan(ph, pw, n, cap)
-            fn = _sharded_encode_stitched_fn(
-                mesh, ph, pw, config, is_rgb, cap, rt=specs is not None
-            )
-            out = fn(img_global, tabs) if specs is not None else fn(img_global)
-            streams_s, seg_tot, chunk_tot, overflow = out
-            words, seg_np = fetch_stitched_shards(
-                streams_s, seg_tot, chunk_tot, overflow,
-                spec_key=(ph, pw, config, n, "sharded",
-                          specs is not None),
-            )
-            if words is not None:
-                scan = b"".join(
-                    pipeline.scan_from_stitched(
-                        words[i], seg_np[i], spc,
-                        rst_phase=(i * k) & 7, trailing=i < n - 1,
-                    )
-                    for i in range(n)
-                )
-                return jfif.assemble(w, h, restart_cfg, [scan],
-                                     huffman_specs=specs)
-            continue
-        if specs is not None:
-            fn = _sharded_encode_fn_rt(mesh, ph, pw, config, is_rgb, cap)
-            streams, totals, overflow = fn(img_global, tabs)
-        else:
-            fn = _sharded_encode_fn(mesh, ph, pw, config, is_rgb, cap)
-            streams, totals, overflow = fn(img_global)
+        fn = _sharded_encode_fn(mesh, ph, pw, config, is_rgb, cap)
+        streams, totals, overflow = fn(img_global, luts)
         if not bool(overflow):
             break
     else:

@@ -270,13 +270,11 @@ def floor_frequencies(freqs: dict) -> dict:
     with 1 <= size <= 10, plus ZRL 0xF0 and EOB 0x00) gets count >= 1,
     so a code exists even for a symbol pass 1 never saw.
 
-    The single-chip device 2-pass guarantees pass-1/pass-2 consistency
-    by histogramming the SAME Pallas kernel's levels; the sharded 2-pass
-    computes its two passes in two separately compiled XLA programs,
-    where cross-program bit-identity of f32 levels is not contractual —
-    a flipped rounding tie must never select a code-less symbol (a
-    silently corrupt stream). Cost: ~176 max-depth codes consume < 0.3%
-    of the code space, a negligible table-quality hit."""
+    The device 2-pass computes its two passes in two separately compiled
+    XLA programs, where cross-program bit-identity of f32 levels is not
+    contractual — a flipped rounding tie must never select a code-less
+    symbol (a silently corrupt stream). Cost: ~176 max-depth codes
+    consume < 0.3% of the code space, a negligible table-quality hit."""
     dc_mask = np.zeros(256, np.int64)
     dc_mask[:12] = 1
     ac_mask = np.zeros(256, np.int64)
@@ -296,6 +294,30 @@ def huffman_luts_from_specs(specs: dict) -> dict:
     """Dense (codes, lengths) LUTs from per-class (bits, values) specs —
     the custom-table edition of huffman_luts()."""
     return {k: canonical_codes(b, v) for k, (b, v) in specs.items()}
+
+
+def stacked_luts(luts: dict | None = None) -> tuple[np.ndarray, ...]:
+    """The device coder's table form: (dc_codes [2, 16] u32, dc_lens
+    [2, 16] i32, ac_codes [2, 256] u32, ac_lens [2, 256] i32), indexed
+    [table, symbol] with table 0 = luminance, 1 = chrominance.
+
+    luts: per-class (codes, lengths) as huffman_luts_from_specs returns;
+    a class it lacks (e.g. chroma for a grayscale 2-pass) takes the
+    Annex-K table. The result is plain data, so the same compiled encode
+    serves the standard tables and every 2-pass optimal table set."""
+    full = dict(huffman_luts())
+    if luts:
+        full.update(luts)
+    dc_codes = np.stack([full["dc_lum"][0][:16], full["dc_chrom"][0][:16]])
+    dc_lens = np.stack([full["dc_lum"][1][:16], full["dc_chrom"][1][:16]])
+    ac_codes = np.stack([full["ac_lum"][0], full["ac_chrom"][0]])
+    ac_lens = np.stack([full["ac_lum"][1], full["ac_chrom"][1]])
+    return (
+        dc_codes.astype(np.uint32),
+        dc_lens.astype(np.int32),
+        ac_codes.astype(np.uint32),
+        ac_lens.astype(np.int32),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -16,13 +16,14 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
+
+from jpegtpu import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 from jpegtpu.config import EncodeConfig  # noqa: E402
 from jpegtpu.parallel import multihost, sharding  # noqa: E402

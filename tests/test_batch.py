@@ -66,14 +66,11 @@ def test_batch_bucket_padding_images_ignored():
 
 
 def test_batch_pallas_segment_concat_parity():
-    """Shapes whose per-image block count is a multiple of 128 take the
-    Pallas per-segment concat (pallas_concat.concat_segments_pallas);
-    streams must still be byte-identical to single-image encodes."""
-    from jpegtpu.entropy import pallas_concat
-
+    """Per-image block counts that are multiples of 128 (whole radix-4
+    tree levels in the batched segment concat) must stay byte-identical
+    to single-image encodes."""
     cfg = EncodeConfig()
-    # gray: 128x64 -> nb = 16*8 = 128 (one merged row per image)
-    assert pallas_concat.segments_pallas_ok(128, cfg.capacity_words_per_block)
+    # gray: 128x64 -> nb = 16*8 = 128
     images = [_img(128, 64, s) for s in range(3)]
     got = batch.encode_grayscale_batch(images, cfg)
     for i, img in enumerate(images):
@@ -93,20 +90,20 @@ def test_batch_pallas_segment_concat_parity():
 
 
 def test_batch_raw_plane_parity():
-    """Shapes eligible for the packed-plane raw batch path (width 1024
-    or a divisor >= 128) must stay byte-identical to single encodes."""
+    """Wide batch shapes (512, 1024 and 2048 columns, pad rows) must
+    stay byte-identical to single encodes."""
     cfg = EncodeConfig()
-    # r=2 side-by-side packing: 512-wide images
+    # 512-wide images
     images = [_img(120, 512, s) for s in range(4)]
     got = batch.encode_grayscale_batch(images, cfg)
     for i, img in enumerate(images):
         assert got[i] == pipeline.encode_grayscale(img, cfg), f"512w {i}"
-    # r=1: width a multiple of 1024 (non-64-multiple height -> pad rows)
+    # width 1024, non-64-multiple height
     images = [_img(72, 1024, 10 + s) for s in range(2)]
     got = batch.encode_grayscale_batch(images, cfg)
     for i, img in enumerate(images):
         assert got[i] == pipeline.encode_grayscale(img, cfg), f"1024w {i}"
-    # r=1, ncg=2: 2048-wide images (the (rg, s, cg) segment-order case)
+    # 2048-wide images
     images = [_img(64, 2048, 20 + s) for s in range(2)]
     got = batch.encode_grayscale_batch(images, cfg)
     for i, img in enumerate(images):
@@ -114,8 +111,8 @@ def test_batch_raw_plane_parity():
 
 
 def test_batch_raw_plane_parity_over_mesh():
-    """The packed-plane raw path inside shard_map (per-shard r-up
-    packing) must match single-image encodes."""
+    """The batched path inside shard_map (16 images over 8 devices)
+    must match single-image encodes."""
     from jpegtpu.parallel.sharding import make_mesh
 
     cfg = EncodeConfig()
@@ -139,27 +136,21 @@ def _rgb(h, w, seed):
 
 
 def test_color_batch_raw_plane_parity():
-    """Shapes eligible for the all-Pallas batched color body (chroma
-    width dividing or a multiple of the 1024-lane tile) must stay
-    byte-identical to single encodes, for every subsampling mode and
-    packing regime (side-by-side r>1, vertical r=1, multi-col-group)."""
+    """Batched color must stay byte-identical to single encodes for
+    every subsampling mode over narrow, wide and non-MCU-multiple
+    shapes."""
     from jpegtpu import color_pipeline
 
     cases = [
-        ("420", (128, 128), 3),   # r=16 side-by-side
-        ("422", (128, 256), 5),   # r=8
-        ("444", (64, 128), 4),    # r=8
-        ("420", (120, 512), 3),   # r=4, non-MCU-multiple height
-        ("420", (128, 2048), 2),  # r=1 vertical stacking (mw=1024)
-        ("420", (64, 4096), 2),   # r=1, ncg_c=2 (the (rg,s,cg) order)
+        ("420", (128, 128), 3),
+        ("422", (128, 256), 5),
+        ("444", (64, 128), 4),
+        ("420", (120, 512), 3),   # non-MCU-multiple height
+        ("420", (128, 2048), 2),
+        ("420", (64, 4096), 2),
     ]
     for ss, (h, w), n in cases:
         cfg = EncodeConfig(subsampling=ss)
-        ph, pw = color_pipeline.padded_dims_color(h, w, ss)
-        mw = pw // (1 if ss == "444" else 2)
-        _, r, _ = batch._slot_geom(mw // 8)
-        bsz = max(batch._bucket_batch(n), max(r, 1))
-        assert batch._color_raw_ok(bsz, ph, pw, cfg, 8), (ss, h, w)
         imgs = [_rgb(h, w, 40 + s) for s in range(n)]
         got = batch.encode_color_batch(imgs, cfg)
         for i, img in enumerate(imgs):
@@ -169,8 +160,8 @@ def test_color_batch_raw_plane_parity():
 
 
 def test_color_batch_raw_over_mesh():
-    """The batched raw color body inside shard_map (per-shard packing)
-    must match single-image encodes."""
+    """The batched color path inside shard_map must match single-image
+    encodes."""
     from jpegtpu import color_pipeline
     from jpegtpu.parallel.sharding import make_mesh
 
@@ -211,18 +202,11 @@ def test_batch_restart_and_host_entropy_route_per_image():
 
 
 def test_gray_batch_raw_arbitrary_widths():
-    """VERDICT r3 #2: ANY width rides the all-Pallas batch path (masked
-    pad lanes), byte-equal to single encodes — 760/640/1366/200 were
-    silently demoted to the ~2x slower staged path in r3."""
-    from jpegtpu.ops import blocks as _blocks
-
+    """ANY width batches, byte-equal to single encodes (760/640/1366/200
+    columns: none a power of two)."""
     cfg = EncodeConfig()
     cases = [(48, 760, 2), (64, 640, 3), (40, 1366, 2), (56, 200, 5)]
     for h, w, n in cases:
-        ph, pw = _blocks.padded_dims(h, w)
-        _, r, _ = batch._slot_geom(pw // 8)
-        bsz = -(-max(batch._bucket_batch(n), 1) // r) * r
-        assert batch._gray_raw_ok(bsz, ph, pw, cfg, 8), (h, w)
         imgs = [_img(h, w, 90 + s) for s in range(n)]
         got = batch.encode_grayscale_batch(imgs, cfg)
         for i, img in enumerate(imgs):
@@ -231,18 +215,13 @@ def test_gray_batch_raw_arbitrary_widths():
 
 def test_color_batch_raw_arbitrary_widths():
     """Color twin of the arbitrary-width coverage: non-pow2 chroma
-    widths pack with masked pad lanes on the raw path."""
+    widths batch byte-equal to single encodes."""
     from jpegtpu import color_pipeline
 
     cases = [("420", 48, 760, 2), ("420", 64, 1360, 2),
              ("444", 40, 200, 3), ("422", 48, 328, 3)]
     for ss, h, w, n in cases:
         cfg = EncodeConfig(subsampling=ss)
-        ph, pw = color_pipeline.padded_dims_color(h, w, ss)
-        mw = pw // (1 if ss == "444" else 2)
-        _, r, _ = batch._slot_geom(mw // 8)
-        bsz = -(-max(batch._bucket_batch(n), 1) // r) * r
-        assert batch._color_raw_ok(bsz, ph, pw, cfg, 8), (ss, h, w)
         imgs = [_rgb(h, w, 120 + s) for s in range(n)]
         got = batch.encode_color_batch(imgs, cfg)
         for i, img in enumerate(imgs):

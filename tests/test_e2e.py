@@ -91,16 +91,15 @@ def test_restart_device_bytes_equal_host_coder():
 
 
 def test_restart_stitched_overflow_ladder():
-    """Q100 noise overflows the heuristic capacity rung; the stitched
-    restart path must climb the ladder (retrying the stitch at the next
-    rung or degrading to per-segment buffers past 16 words) and still
-    emit the host coder's exact bytes."""
+    """Q100 noise overflows the heuristic capacity rung; the restart
+    path must climb the ladder and still emit the host coder's exact
+    bytes."""
     from jpegtpu import pipeline
 
     rng = np.random.default_rng(13)
     img = rng.integers(0, 256, (64, 64), dtype=np.uint8)
-    # quality 80: overflows rung 8, fits the stitched rung 16 retry;
-    # quality 100: overflows 16 too -> per-segment degrade at rung 53
+    # quality 80: overflows rung 8, fits the rung 16 retry;
+    # quality 100: overflows 16 too -> the worst-case rung 53
     for quality, want_rung in ((80, 16), (100, 53)):
         cfg = EncodeConfig(
             quality=quality, restart_interval=8, entropy="device"
@@ -119,9 +118,8 @@ def test_restart_stitched_overflow_ladder():
 
 
 def test_restart_stitched_int32_bytes_equal_host_coder():
-    """The stitched restart path must hold byte parity in the
-    integer-exact mode too (the raw front half routes int32 through
-    the integer transform kernel)."""
+    """The restart path must hold byte parity in the integer-exact mode
+    too."""
     rng = np.random.default_rng(14)
     img = rng.integers(0, 256, (96, 72), dtype=np.uint8)
     for interval in (7, 54):
@@ -167,7 +165,7 @@ def test_restart_device_color_bytes_equal_host_coder():
 
 
 def test_color_restart_stitched_int32_bytes_equal_host_coder():
-    """Color stitched restart path under the integer-exact mode: byte
+    """Color restart path under the integer-exact mode: byte
     parity with the host coder (420 covers the interleaved MCU merge +
     per-component DC resets on the int32 transform)."""
     from jpegtpu import color_pipeline

@@ -99,18 +99,18 @@ def test_golden_stream_parity(golden):
     assert got == golden["stream"].tobytes()
 
 
-class TestMergeStreamsPallas:
-    """Direct unit test of the register-resident stream merge kernel."""
+class TestMergeStreams:
+    """The MCU-interleave merges (treepack.merge_adjacent_t /
+    merge_two_t) against a big-integer concatenation of the streams."""
 
     def test_matches_numpy_concat(self):
-        from jpegtpu.entropy import pallas_pack
+        from jpegtpu.entropy import treepack
 
         rng = np.random.default_rng(7)
-        g, e, cap = 2, 6, 4
-        lanes = pallas_pack.SUBLANES * pallas_pack.LANES
-        n = g * lanes
+        n, e, cap = 300, 6, 4
         # random streams: bit length 0..cap*32, MSB-aligned, zero beyond
         bits = rng.integers(0, cap * 32 + 1, size=(n, e)).astype(np.int32)
+        bits[::7, 2] = 0  # empty streams merge too
         words = rng.integers(0, 1 << 32, size=(n, e, cap), dtype=np.uint64)
         words = words.astype(np.uint32)
         for i in range(n):
@@ -139,20 +139,19 @@ class TestMergeStreamsPallas:
                 big >>= 32
             return out, tot
 
-        w_raw = jnp.asarray(
-            words.reshape(g, pallas_pack.SUBLANES, pallas_pack.LANES, e, cap)
-            .transpose(0, 3, 4, 1, 2)
-        )
-        b_raw = jnp.asarray(
-            bits.reshape(g, pallas_pack.SUBLANES, pallas_pack.LANES, e)
-            .transpose(0, 3, 1, 2)
-        )
-        merged, tot = pallas_pack.merge_streams_pallas(
-            w_raw, b_raw, interpret=True
-        )
-        merged = np.asarray(merged).transpose(0, 2, 3, 1).reshape(n, e * cap)
-        tot = np.asarray(tot).reshape(n)
-        for i in range(0, n, 37):
+        # streams 0..3 as adjacent column pairs (the 4:2:0 Y fold), then
+        # 4||5 (Cb||Cr), then Y||C — the color MCU merge order
+        w_t = jnp.asarray(words[:, :4].reshape(n * 4, cap).T)
+        b_t = jnp.asarray(bits[:, :4].reshape(n * 4))
+        w_y, b_y = treepack.merge_adjacent_t(w_t, b_t)
+        w_y, b_y = treepack.merge_adjacent_t(w_y, b_y)
+        w_c = jnp.asarray(words[:, 4:].reshape(n * 2, cap).T)
+        b_c = jnp.asarray(bits[:, 4:].reshape(n * 2))
+        w_c, b_c = treepack.merge_adjacent_t(w_c, b_c)
+        merged, tot = treepack.merge_two_t(w_y, b_y, w_c, b_c)
+        merged = np.asarray(merged).T
+        tot = np.asarray(tot)
+        for i in range(0, n, 7):
             exp_w, exp_b = ref_merge(words[i], bits[i])
             assert tot[i] == exp_b
-            np.testing.assert_array_equal(merged[i], exp_w, err_msg=f"lane {i}")
+            np.testing.assert_array_equal(merged[i], exp_w, err_msg=f"row {i}")

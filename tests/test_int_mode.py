@@ -86,38 +86,42 @@ def test_int_mode_color_deterministic_and_close_to_float():
         assert abs(pi - pf) < 0.2, (c, pi, pf)
 
 
-def test_int_raw_kernel_matches_xla_int_levels():
-    """The all-Pallas int transform (pallas_transform int_mode) must be
-    bit-identical to the XLA int path (ops/int_transform) — the raw
-    encode bodies route dct_dtype='int32' through the kernel, while
-    grayscale_coefficients / the sharded path use the XLA formulation;
-    both must produce the SAME stream."""
+def test_int_levels_match_numpy_oracle_across_tables():
+    """The integer transform (ops/int_transform) must equal a pure numpy
+    int64 recomputation for every quant table and basis — the property
+    that makes dct_dtype='int32' streams identical on every backend."""
     import jax.numpy as jnp
 
-    from jpegtpu.ops import int_transform, pallas_transform as pt
+    from jpegtpu import tables
+    from jpegtpu.ops import int_transform
 
     for q, bitexact in ((50, True), (85, True), (25, False)):
         cfg = EncodeConfig(quality=q, dct_dtype="int32", bitexact=bitexact)
         rng = np.random.default_rng(q)
         img = rng.integers(0, 256, (128, 1024), np.uint8)
-        raw = pt.transform_plane_raw(
-            jnp.asarray(img), jnp.asarray(cfg.luma_quant.astype(np.int32)),
-            bitexact=bitexact, interpret=True, int_mode=True,
-        )
-        got = np.asarray(pt.raw_to_scan(raw, 16, 128, 1).T)
-        ref = np.asarray(
+        got = np.asarray(
             int_transform.transform_tiled_int(
                 jnp.asarray(img),
                 jnp.asarray(cfg.luma_quant.astype(np.float32)),
                 bitexact=bitexact,
             )
         )
+        basis = (tables.dct_basis_reference if bitexact
+                 else tables.dct_basis)(np.float64)
+        t8 = np.round(basis * 2048).astype(np.int64)
+        x = img.astype(np.int64) - 128
+        blk = x.reshape(16, 8, 128, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+        y1 = (np.einsum("ux,nxy->nuy", t8, blk) + 1024) >> 11
+        f = (np.einsum("nuy,vy->nuv", y1, t8) + 1024) >> 11
+        qt = cfg.luma_quant.astype(np.int64)
+        mag = (2 * np.abs(f) + qt) // (2 * qt)
+        ref = np.where(f < 0, -mag, mag).reshape(-1, 64)[:, tables.ZIGZAG_ORDER]
         np.testing.assert_array_equal(got, ref)
 
 
 def test_int_mode_stream_matches_host_coder():
-    """End-to-end cross-path agreement: the raw-path int32 device stream
-    must byte-equal the host coder run on the XLA int path's levels."""
+    """End-to-end agreement: the int32 device stream must byte-equal the
+    host coder run on the same int levels."""
     from jpegtpu.io import jfif
     from jpegtpu.entropy import host as entropy_host
 
@@ -131,7 +135,7 @@ def test_int_mode_stream_matches_host_coder():
 
 
 def test_int_mode_batch_matches_single():
-    """The batched raw path in int32 mode must emit per-image streams
+    """The batched path in int32 mode must emit per-image streams
     identical to single-image encodes."""
     from jpegtpu import batch
 
@@ -155,10 +159,10 @@ def test_int_mode_color_batch_matches_single():
 
 
 def test_int_mode_optimized_device_2pass():
-    """optimize_huffman now rides the device 2-pass in int32 mode (the
-    raw path supports runtime tables); the stream must decode to the
-    same pixels as the standard-table int32 stream and be smaller or
-    equal in size for natural content."""
+    """optimize_huffman rides the device 2-pass in int32 mode (runtime
+    tables); the stream must decode to the same pixels as the
+    standard-table int32 stream and be smaller or equal in size for
+    natural content."""
     img = _img(96, 128, seed=5)
     cfg_o = EncodeConfig(dct_dtype="int32", optimize_huffman=True)
     cfg_s = EncodeConfig(dct_dtype="int32")

@@ -101,50 +101,3 @@ def test_native_bmp_decode_matches_numpy():
         raw = np.frombuffer(data, np.uint8, count=stride * h, offset=offset)
         rows = raw.reshape(h, stride)[:, : w * 3].reshape(h, w, 3)[::-1]
         np.testing.assert_array_equal(dec, rows[..., ::-1])
-
-
-def test_scan_from_words_matches_numpy_fallback():
-    """The native one-pass scan assembler (stuff + RSTn between byte-
-    aligned segments) must equal pipeline.scan_from_stitched's numpy
-    fallback for the same stitched buffer — phases, trailing markers,
-    and multi-chunk splits included."""
-    from jpegtpu import pipeline
-
-    rng = np.random.default_rng(7)
-    for n_seg, spc, rst_phase, trailing in (
-        (1, 4, 0, False), (5, 2, 0, False), (8, 3, 3, True),
-        (7, 7, 5, False),
-    ):
-        seg_bytes = rng.integers(1, 400, n_seg)
-        seg_bytes[rng.random(n_seg) < 0.3] = 1  # tiny segments
-        raw = rng.integers(0, 256, int(seg_bytes.sum()), dtype=np.uint8)
-        raw[::11] = 0xFF  # force stuffing
-        # byte stream -> MSB-aligned u32 word chunks at segment bounds
-        n_chunks = -(-n_seg // spc)
-        words_list, seg_totals = [], (seg_bytes * 8).astype(np.int64)
-        off = 0
-        for c in range(n_chunks):
-            lo, hi = c * spc, min((c + 1) * spc, n_seg)
-            nb = int(seg_bytes[lo:hi].sum())
-            chunk = raw[off : off + nb]
-            off += nb
-            pad = (-len(chunk)) % 4
-            w = np.frombuffer(
-                np.concatenate([chunk, np.zeros(pad, np.uint8)]).tobytes(),
-                dtype=">u4",
-            ).astype(np.uint32)
-            words_list.append(w)
-        want = pipeline.scan_from_stitched(
-            words_list, seg_totals, spc, rst_phase=rst_phase,
-            trailing=trailing,
-        )
-        orig = native.available
-        try:
-            native.available = lambda: False
-            got = pipeline.scan_from_stitched(
-                words_list, seg_totals, spc, rst_phase=rst_phase,
-                trailing=trailing,
-            )
-        finally:
-            native.available = orig
-        assert want == got, (n_seg, spc, rst_phase, trailing)

@@ -86,8 +86,8 @@ def test_optimal_tables_with_restart():
 
 
 def test_device_two_pass_matches_host_two_pass():
-    """The device 2-pass (on-device histograms + runtime-table fused
-    kernel) must produce byte-identical files to the host 2-pass."""
+    """The device 2-pass (on-device histograms + runtime tables) must
+    produce byte-identical files to the host 2-pass."""
     img = _img(96, 120, seed=3)
     dev = pipeline.encode_grayscale(img, EncodeConfig(optimize_huffman=True))
     host = pipeline.encode_grayscale(
@@ -127,29 +127,17 @@ def _gbatch(h, w, n, seed=11):
 
 def test_batched_optimized_gray_shared_tables():
     """Batched 2-pass gray: O(1) dispatches with SHARED optimal tables.
-    Oracle: host-encode the raw-path levels of each image with tables
-    built from the SUMMED frequencies — must be byte-equal."""
-    import jax
-
+    Oracle: host-encode the levels of each image with tables built from
+    the SUMMED frequencies — must be byte-equal."""
     from jpegtpu import batch
     from jpegtpu.entropy import host as entropy_host
     from jpegtpu.io import jfif
-    from jpegtpu.ops import blocks
 
     imgs = _gbatch(120, 512, 3)
     cfg = EncodeConfig(optimize_huffman=True)
     outs = batch.encode_grayscale_batch(imgs, cfg)
 
-    def raw_levels(im):
-        h, w = im.shape[:2]
-        ph, pw = blocks.padded_dims(h, w)
-        if (ph, pw) != (h, w):
-            im = np.pad(im, [(0, ph - h), (0, pw - w)], mode="edge")
-        return np.asarray(
-            jax.jit(lambda x: pipeline._gray_levels_raw_scan(x, cfg, False))(im)
-        )
-
-    zzs = [raw_levels(im) for im in imgs]
+    zzs = [pipeline.grayscale_coefficients(im, cfg) for im in imgs]
     freqs = None
     for zz in zzs:
         f = entropy_host.symbol_frequencies(zz)
@@ -183,9 +171,6 @@ def test_batched_optimized_gray_over_mesh():
 def test_batched_optimized_color_shared_tables():
     """Batched color 2-pass: shared optimal tables, byte-equal to the
     host coder with the same summed-frequency tables."""
-    import jax
-    import jax.numpy as jnp
-
     from jpegtpu import batch
     from jpegtpu.entropy import host as entropy_host
     from jpegtpu.io import jfif
@@ -205,18 +190,7 @@ def test_batched_optimized_color_shared_tables():
 
     freqs, zts = None, []
     for im in imgs:
-        ph, pw = color_pipeline.padded_dims_color(*im.shape[:2], "420")
-        imp = np.pad(im, [(0, ph - im.shape[0]), (0, pw - im.shape[1]),
-                          (0, 0)], mode="edge")
-        dev = jnp.asarray(np.ascontiguousarray(np.moveaxis(imp, -1, 0)))
-        zy, zcb, zcr = jax.jit(
-            lambda x: color_pipeline._component_levels_raw(x, cfg)
-        )(dev)
-        allz = np.concatenate(
-            [np.asarray(zy), np.asarray(zcb), np.asarray(zcr)]
-        ).astype(np.int32)
-        gidx, tsel, comp = color_pipeline._scan_layout(ph, pw, "420")
-        zz = allz[gidx]
+        zz, tsel, comp = color_pipeline.color_coefficients(im, cfg)
         zts.append((im, zz, tsel, comp))
         f = entropy_host.symbol_frequencies(
             zz, table_sel=tsel.astype(np.int64), comp_id=comp
@@ -236,25 +210,23 @@ def test_batched_optimized_color_shared_tables():
         Image.open(io.BytesIO(outs[i])).load()
 
 
-def test_batched_optimized_staged_shape_falls_back(monkeypatch):
-    """Shapes the raw path can't take (e.g. per-image rows past the
-    streaming-concat bound) encode per image — identical to the
-    single-image 2-pass. Since r4 ANY width packs (_slot_geom), so the
-    staged predicate is forced off to exercise the fallback."""
+def test_batched_optimized_staged_shape_falls_back():
+    """A bucket of ONE image (each of these shapes differs) shares its
+    optimal tables with nobody: its batched 2-pass file must equal the
+    single-image 2-pass encode."""
     from jpegtpu import batch
 
-    imgs = _gbatch(48, 80, 2, seed=14)
+    imgs = _gbatch(48, 80, 1, seed=14) + _gbatch(40, 72, 1, seed=15)
     cfg = EncodeConfig(optimize_huffman=True)
-    monkeypatch.setattr(batch, "_gray_raw_ok", lambda *a, **k: False)
     outs = batch.encode_grayscale_batch(imgs, cfg)
     for im, o in zip(imgs, outs):
         assert o == pipeline.encode_grayscale(im, cfg)
 
 
 def test_batched_optimized_arbitrary_width_shared_tables():
-    """r4: arbitrary widths ride the batched 2-pass raw path (shared
-    optimal tables) — streams must be valid and smaller than the
-    standard-table batch."""
+    """Arbitrary widths ride the batched 2-pass (shared optimal tables)
+    — streams must be valid and no larger than the standard-table
+    batch."""
     from jpegtpu import batch
 
     imgs = _gbatch(48, 80, 2, seed=14)
@@ -346,9 +318,9 @@ def test_sharded_optimized_color(ss):
 
 
 def test_restart_device_two_pass_matches_host_two_pass():
-    """VERDICT r3 #4: optimize_huffman + restart_interval now rides the
-    device 2-pass (runtime-table segment machinery); its output must be
-    byte-identical to the host 2-pass with the same config."""
+    """optimize_huffman + restart_interval rides the device 2-pass
+    (runtime-table segment machinery); its output must be byte-identical
+    to the host 2-pass with the same config."""
     img = _img(96, 120, seed=21)
     cfg = EncodeConfig(optimize_huffman=True, restart_interval=16)
     dev = pipeline.encode_grayscale(img, cfg)
@@ -382,8 +354,8 @@ def test_color_restart_device_two_pass_matches_host_two_pass(ss):
 
 
 def test_restart_optimized_pathological_falls_back():
-    """Dense noise past the fused-path capacity must fall back to the
-    host 2-pass and still produce a valid restart stream."""
+    """Dense noise past the heuristic capacity retries at the worst-case
+    rung with the runtime tables, byte-equal to the host 2-pass."""
     rng = np.random.default_rng(17)
     img = rng.integers(0, 256, (64, 64), np.uint8)
     cfg = EncodeConfig(quality=100, optimize_huffman=True,

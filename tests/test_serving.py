@@ -114,8 +114,8 @@ def test_capacity_history_decays():
     """A single pathological image must not pin an encode site at the
     worst rung forever: every _CAP_DECAY_PERIOD encodes the ladder
     probes one rung lower, and a success there overwrites the history
-    (ADVICE r3: ratchet-only history demoted optimized/raw paths for
-    the process lifetime)."""
+    (a ratchet-only history would pin the site for the process
+    lifetime)."""
     cfg = EncodeConfig()
     key = ("decay-test", cfg)
     pipeline.record_cap(key, 16)  # as if one image needed the mid rung

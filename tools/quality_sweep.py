@@ -12,18 +12,12 @@ import io
 import os
 import sys
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-
 import numpy as np
 from PIL import Image
 
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from jpegtpu import color_pipeline, pipeline
+from jpegtpu import color_pipeline, compile_cache, pipeline
 from jpegtpu.analysis import psnr
 from jpegtpu.config import EncodeConfig
 
@@ -65,6 +59,7 @@ def sweep(path: str):
 
 
 def main():
+    compile_cache.enable()
     args = [a for a in sys.argv[1:] if not a.startswith("-")]
     paths = args or ["/root/reference/assets/input/lena.bmp"]
     if "--full-corpus" in sys.argv:
